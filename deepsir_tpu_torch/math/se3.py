@@ -1,0 +1,35 @@
+"""SE(3) rigid transforms on torch tensors (deepsir_tpu/math/se3.py).
+
+Transforms are (..., 3, 4) matrices [R | t] and broadcast over leading batch
+dims; points are (..., N, 3).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def identity(batch_shape=(), device=None, dtype=torch.float32) -> torch.Tensor:
+    """Identity transform of shape (*batch_shape, 3, 4)."""
+    eye = torch.eye(3, 4, device=device, dtype=dtype)
+    return eye.expand(*tuple(batch_shape), 3, 4).clone()
+
+
+def inverse(g: torch.Tensor) -> torch.Tensor:
+    """Inverse of an SE3 transform (..., 3/4, 4) -> (..., 3, 4)."""
+    inv_rot = g[..., :3, :3].transpose(-1, -2)
+    inv_trans = -(inv_rot @ g[..., :3, 3:4])
+    return torch.cat([inv_rot, inv_trans], dim=-1)
+
+
+def concatenate(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Compose two SE3 transforms: returns a @ b as a (..., 3, 4) matrix."""
+    ra, ta = a[..., :3, :3], a[..., :3, 3:4]
+    rb, tb = b[..., :3, :3], b[..., :3, 3:4]
+    return torch.cat([ra @ rb, ra @ tb + ta], dim=-1)
+
+
+def transform(g: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply SE3 transform g (..., 3/4, 4) to points (..., N, 3)."""
+    rot = g[..., :3, :3]
+    trans = g[..., :3, 3]
+    return pts @ rot.transpose(-1, -2) + trans[..., None, :]

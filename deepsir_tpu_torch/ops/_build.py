@@ -1,0 +1,93 @@
+"""Build and load the port's CUDA kernels: plain `nvcc` into a shared library
+with a C interface, loaded with ctypes.
+
+Each `csrc/<name>.cu` becomes `_build/<name>-<hash>.so`, where the hash
+covers the source and the flags, so a stale library is never loaded. The
+build runs at first use; `build_all` starts one `nvcc` per source at once.
+Sources include no PyTorch headers, so a build takes seconds.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD = PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """nvcc from PATH, else $CUDA_HOME/bin (CUDA_HOME defaults to /usr/local/cuda)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin; "
+                       "the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: Iterable[str]) -> Dict[str, str]:
+    """Build every named kernel that is not built yet, all nvcc runs at once.
+
+    Returns {name: ptxas report} for the libraries built by this call.
+    Raises RuntimeError with nvcc's stderr when a build fails.
+    """
+    todo = {n: library_path(n) for n in names if not library_path(n).is_file()}
+    if not todo:
+        return {}
+    nvcc = nvcc_path()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True),
+                       tmp, out)
+    reports, errors = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):"
+                          f"\n{stderr}{stdout}")
+            tmp.unlink(missing_ok=True)
+            continue
+        os.replace(tmp, out)
+        reports[name] = stderr + stdout
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise when a C launcher returned a CUDA error code."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status}")

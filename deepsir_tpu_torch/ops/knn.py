@@ -1,0 +1,25 @@
+"""Exact k-nearest-neighbour search (deepsir_tpu/ops/knn.py::knn).
+
+Neighbours come back ascending by squared distance, ties to the lowest ref
+index. A CUDA tensor goes to kernel K1 (ops/cuda_knn.py), a CPU tensor to its
+plain PyTorch version. k > M pads by repeating the farthest neighbour, as the
+reference does for tiny deepest pyramid levels (knn.py:36-41), so every index
+stays valid for later gathers.
+"""
+from __future__ import annotations
+
+import torch
+
+from deepsir_tpu_torch.ops.cuda_knn import knn_topk
+
+
+def knn(query: torch.Tensor, ref: torch.Tensor, k: int):
+    """query (B, N, D), ref (B, M, D) -> (idx (B, N, k) int64, sq_dist (B, N, k))."""
+    m = ref.shape[-2]
+    if k > m:
+        idx, dist = knn_topk(query, ref, m)
+        pad = k - m
+        idx = torch.cat([idx, idx[..., -1:].expand(*idx.shape[:-1], pad)], dim=-1)
+        dist = torch.cat([dist, dist[..., -1:].expand(*dist.shape[:-1], pad)], dim=-1)
+        return idx, dist
+    return knn_topk(query, ref, k)

@@ -1,0 +1,70 @@
+"""The RandLA-Net index pyramid, built on the device (deepsir_tpu/ops/pyramid.py).
+
+Random subsampling keeps the reference's contract: the first N/r points of a
+cloud in randomized order are a uniform random sample ("first" sampling).
+Levels are separate tensors with a leading batch dim.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from deepsir_tpu_torch.ops.knn import knn
+
+
+class Pyramid(NamedTuple):
+    """Per-level index structure for a batch of clouds.
+
+    With L encoder layers and level sizes [N0, N1, ..., NL]:
+      xyz[l]:        (B, Nl, 3)      points at level l,   l in 0..L-1
+      neigh_idx[l]:  (B, Nl, K)      KNN within level l
+      pool_idx[l]:   (B, N{l+1}, K)  neighbourhoods pooled into level l+1
+      interp_idx[l]: (B, Nl)         nearest level-(l+1) point of each point
+    Indices are int64.
+    """
+    xyz: Tuple[torch.Tensor, ...]
+    neigh_idx: Tuple[torch.Tensor, ...]
+    pool_idx: Tuple[torch.Tensor, ...]
+    interp_idx: Tuple[torch.Tensor, ...]
+
+
+def build_pyramid(xyz: torch.Tensor, num_knn: int = 16,
+                  ratios: Tuple[int, ...] = (4, 4, 4, 4),
+                  sample: str = "first") -> Pyramid:
+    """Build the index pyramid for a batch of clouds (B, N, 3).
+
+    Per level: one num_knn self-search and one 1-NN search from the level's
+    points into the next level's points.
+    """
+    if sample != "first":
+        raise NotImplementedError(f"build_pyramid sample={sample!r}")
+    xyzs, neighs, pools, interps = [], [], [], []
+    pc = xyz.contiguous()
+    for r in ratios:
+        n_next = pc.shape[-2] // r
+        neigh, _ = knn(pc, pc, num_knn)                     # (B, Nl, K)
+        sub = pc[:, :n_next].contiguous()                   # random sample
+        up, _ = knn(pc, sub, 1)                             # (B, Nl, 1)
+        xyzs.append(pc)
+        neighs.append(neigh)
+        pools.append(neigh[:, :n_next])
+        interps.append(up[..., 0])
+        pc = sub
+    return Pyramid(tuple(xyzs), tuple(neighs), tuple(pools), tuple(interps))
+
+
+def slice_neighbours(pyr: Pyramid, k: int) -> Pyramid:
+    """Truncate every neighbour list to its k nearest entries (lists are
+    ascending). k <= 0 or k >= K returns `pyr` unchanged."""
+    if k <= 0 or k >= pyr.neigh_idx[0].shape[-1]:
+        return pyr
+    return pyr._replace(
+        neigh_idx=tuple(n[..., :k] for n in pyr.neigh_idx),
+        pool_idx=tuple(p[..., :k] for p in pyr.pool_idx))
+
+
+def concat_pyramids(a: Pyramid, b: Pyramid) -> Pyramid:
+    """Stack two pyramids along the batch dim."""
+    return Pyramid(*(tuple(torch.cat([x, y], dim=0) for x, y in zip(fa, fb))
+                     for fa, fb in zip(a, b)))

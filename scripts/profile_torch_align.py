@@ -1,0 +1,126 @@
+"""Where the time goes in the PyTorch port's align inference forward, on one
+CUDA card.
+
+    python scripts/profile_torch_align.py [--batch 1] [--reps 3] [--out FILE]
+
+Drives `device_batch` -> `Network.forward_align` at chip_smoke.py's full-width
+configuration (18000 points, 5 iterations, seeded random weights) and prints:
+- host time per step under `torch.cuda.synchronize()`: pyramid build
+  (`device_batch`), backbone pass, scoring, the whole forward;
+- torch.profiler over one batch: device time by kernel (top 25), the number
+  of device events (kernel launches and copies), and the device's busy share
+  of the window.
+With --out, the same numbers are also written there as JSON.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--out", type=Path, default=None, help="JSON file to write")
+    args = ap.parse_args()
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_torch_align: no CUDA device", flush=True)
+        return 1
+    import chip_smoke
+    from deepsir_tpu_torch.config import ModelConfig
+    from deepsir_tpu_torch.models.network import ForwardOptions
+    from deepsir_tpu_torch.training import device_batch
+    from deepsir_tpu_torch.utils.params import init_params, load_network
+
+    dev = torch.device("cuda", 0)
+    cfg = ModelConfig(feat_len=chip_smoke.FEAT_LEN, num_points=chip_smoke.N_POINTS,
+                      num_reg_iter=chip_smoke.N_ITERS)
+    model = load_network(cfg, init_params(cfg, seed=0), device=dev)
+    opts = ForwardOptions(num_iter=chip_smoke.N_ITERS, clip_weight=True)
+    rng = np.random.default_rng(0)
+    feeds = [chip_smoke.make_arrays(rng, args.batch) for _ in range(args.reps + 1)]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    steps = {"device_batch": [], "backbone_pair": [], "score_pair": [],
+             "forward_align": [], "end_to_end": []}
+    with torch.no_grad():
+        for i, arrays in enumerate(feeds):
+            batch, t_pyr = timed(lambda: device_batch(cfg, arrays, device=dev))
+            feats, t_bb = timed(lambda: model.backbone_pair(batch))
+            _, t_sc = timed(lambda: model.score_pair(batch, feats[0], feats[2],
+                                                     feats[1], feats[3]))
+            _, t_fwd = timed(lambda: model.forward_align(batch, opts))
+            _, t_e2e = timed(lambda: model.forward_align(
+                device_batch(cfg, arrays, device=dev), opts))
+            if i == 0:
+                continue                                   # warm-up
+            for key, t in zip(steps, (t_pyr, t_bb, t_sc, t_fwd, t_e2e)):
+                steps[key].append(t)
+    step_ms = {k: float(np.median(v)) for k, v in steps.items()}
+    for k, v in step_ms.items():
+        print(f"{k:>14}: {v:9.3f} ms (median of {args.reps}, B={args.batch})", flush=True)
+
+    arrays = feeds[0]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.forward_align(device_batch(cfg, arrays, device=dev), opts)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(evt):
+        return getattr(evt, "self_device_time_total", None) or \
+            getattr(evt, "self_cuda_time_total", 0.0)
+
+    # device-side events only (kernels, copies): the operator entries on the
+    # host carry their kernels' device time too and would count it twice
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    kernels.sort(key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    events = sum(e.count for e in kernels)
+    top = [{"name": e.key[:120], "count": e.count, "device_ms": dev_us(e) / 1e3}
+           for e in kernels[:25]]
+    print(f"profiled window {window_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({busy_ms / window_ms:.3f} of the window), {events} device events "
+          f"(kernels and copies)",
+          flush=True)
+    for t in top:
+        print(f"{t['device_ms']:9.3f} ms {t['count']:6d}x  {t['name']}", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    if args.out is None:
+        return 0
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "batch": args.batch, "step_ms": step_ms, "window_ms": window_ms,
+        "device_busy_ms": busy_ms, "device_events": events, "top": top}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
