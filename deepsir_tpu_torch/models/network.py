@@ -4,9 +4,11 @@ One module owns the RandLA feature extractor, the aggregation MLPs and the
 inlier RandLA. `forward_align` runs the backbone over both clouds, scores
 keypoints, then `num_iter` registration iterations: re-aggregate the source
 descriptors at the current pose, nearest-descriptor search (kernel K2 on the
-card), inlier weighting over [src ; matched ref] pairs, weighted Kabsch,
-compose. The ref descriptor, the inlier net's LocSE cache and mlp_feat of
-the source features are computed once, outside the loop.
+card; K3, both directions, when the mutual gate or the `recip` channel needs
+the reverse match), inlier weighting over [src ; matched ref ; extras]
+pairs, the optional mutual gate, weighted Kabsch, compose. The ref
+descriptor, the inlier net's LocSE cache and mlp_feat of the source features
+are computed once, outside the loop.
 """
 from __future__ import annotations
 
@@ -15,12 +17,13 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from deepsir_tpu_torch.config import ModelConfig, check_supported
+from deepsir_tpu_torch.config import ModelConfig, check_supported, inlier_extras
 from deepsir_tpu_torch.math import se3
 from deepsir_tpu_torch.models.layers import MLP
 from deepsir_tpu_torch.models.randla import RandLA
 from deepsir_tpu_torch.models.scoring import score_points
-from deepsir_tpu_torch.ops.distance import nearest_neighbour_index
+from deepsir_tpu_torch.ops.distance import (mutual_gate, nearest_neighbour_bidirectional,
+                                            nearest_neighbour_index)
 from deepsir_tpu_torch.ops.gather import gather_points
 from deepsir_tpu_torch.ops.pyramid import Pyramid, concat_pyramids
 from deepsir_tpu_torch.ops.svd3 import weighted_kabsch
@@ -67,7 +70,9 @@ class Network(nn.Module):
         self.mlp_feat = MLP(c, (c, 128, c))
         self.mlp_att = MLP(4, (32, 64, 128, 256, c))
         self.mlp_proj = MLP(c, (c,))
-        self.inlier_model = RandLA(cfg, 1, 6)
+        # [src xyz ; matched ref xyz] plus one channel per extra feature
+        self.extras = inlier_extras(cfg)
+        self.inlier_model = RandLA(cfg, 1, 6 + len(self.extras))
 
     def aggregate_side(self, xyz, feat, score):
         """One cloud's L2-normalised descriptor: proj(mlp_feat(f) + mlp_att([xyz; s]))."""
@@ -118,18 +123,36 @@ class Network(nn.Module):
         xyz_src = xyz_src0
         cum = se3.identity((b,), device=xyz_src0.device, dtype=xyz_src0.dtype)
         invalid = torch.zeros(b, dtype=torch.bool, device=xyz_src0.device)
+        need_ridx = cfg.mutual_check or "recip" in self.extras
         transforms, logits_iters, idx_iters = [], [], []
         for _ in range(opts.num_iter):
             fs = self.aggregate_moving(xyz_src, score_src, ff_src)
-            idx = nearest_neighbour_index(fs, fr)                       # (B, N)
+            if need_ridx:
+                idx, ridx = nearest_neighbour_bidirectional(fs, fr)     # (B, N), (B, M)
+            else:
+                idx = nearest_neighbour_index(fs, fr)                   # (B, N)
             xyz_ref_new = gather_points(xyz_ref, idx)
-            pair_feats = torch.cat([xyz_src, xyz_ref_new], dim=-1)
+            # the extra channels stack as [dist, recip] whatever the order of
+            # the config string, as the reference stacks them
+            feats = [xyz_src, xyz_ref_new]
+            if "dist" in self.extras:
+                feats.append(torch.linalg.vector_norm(
+                    fs - gather_points(fr, idx), dim=-1, keepdim=True))
+            if "recip" in self.extras:
+                # |src_i - src[reverse(idx_i)]| in untransformed coordinates
+                back = gather_points(xyz_src0, ridx)                    # (B, M, 3)
+                feats.append(torch.linalg.vector_norm(
+                    gather_points(back, idx) - xyz_src0, dim=-1, keepdim=True))
+            pair_feats = torch.cat(feats, dim=-1)
             _, logit = self.inlier_model(pair_feats, pyr, pos_cache=inlier_pos)
             logit = logit[..., 0]
             weights = torch.sigmoid(logit)
             if opts.clip_weight and cfg.clip_weight_thresh > 0:
                 weights = torch.where(weights < cfg.clip_weight_thresh,
                                       torch.zeros_like(weights), weights)
+            if cfg.mutual_check:
+                weights = weights * mutual_gate(idx, ridx, src_xyz=xyz_src0,
+                                                tol=cfg.mutual_check_tol)
             r_t, bad = weighted_kabsch(xyz_src, xyz_ref_new, weights)
             xyz_src = se3.transform(r_t, xyz_src)
             cum = se3.concatenate(r_t, cum)

@@ -2,7 +2,8 @@
 with a C interface, loaded with ctypes.
 
 Each `csrc/<name>.cu` becomes `_build/<name>-<hash>.so`, where the hash
-covers the source and the flags, so a stale library is never loaded. The
+covers the source, the shared headers `csrc/*.cuh` and the flags, so a stale
+library is never loaded. The
 build runs at first use; `build_all` starts one `nvcc` per source at once.
 Sources include no PyTorch headers, so a build takes seconds.
 """
@@ -40,6 +41,8 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
     return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,10 +1,14 @@
-"""K2: fused descriptor distance + argmin, the CUDA kernel
-`csrc/match_argmin.cu` and its plain PyTorch version.
+"""The correspondence search's kernels and their plain PyTorch versions.
 
-Replaces deepsir_tpu/ops/pallas_match.py::match_argmin_single: for every src
-row the ref row minimising |r|^2 - 2 s.r, ties to the lowest index. The
-kernel runs fp32 FMAs on the CUDA cores; the two versions sum the dot
-products in different orders, so they may pick different rows only where
+K2, `csrc/match_argmin.cu`, replaces
+deepsir_tpu/ops/pallas_match.py::match_argmin_single: for every src row the
+ref row minimising |r|^2 - 2 s.r, ties to the lowest index.
+K3, `csrc/match_bidir.cu`, replaces
+deepsir_tpu/ops/pallas_match.py::match_argmin_bidirectional: K2's result and,
+in the same pass, for every ref row the src row minimising the full distance
+(|r|^2 - 2 s.r) + |s|^2, ties to the lowest index.
+The kernels run fp32 FMAs on the CUDA cores; kernel and plain version sum the
+dot products in different orders, so they may pick different rows only where
 two distances are within float rounding of each other.
 """
 from __future__ import annotations
@@ -37,6 +41,56 @@ def match_argmin_plain(src: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return torch.cat(parts, dim=1)
 
 
+def match_argmin_bidirectional_plain(src: torch.Tensor, ref: torch.Tensor):
+    """(B, N, C) x (B, M, C) -> (idx (B, N), ridx (B, M)) int64.
+
+    Chunked over src rows as `match_argmin_plain`; each chunk's column
+    minima of `ref_sq - 2 src @ ref^T + src_sq` replace the running ones only
+    where strictly smaller, so ties go to the lowest src row.
+    """
+    b, n, _ = src.shape
+    m = ref.shape[1]
+    ref_sq = torch.sum(ref * ref, dim=-1)                      # (B, M)
+    src_sq = torch.sum(src * src, dim=-1)                      # (B, N)
+    ref_t = ref.transpose(1, 2)
+    chunk = max(1, _CHUNK_ELEMS // max(1, b * m))
+    parts = []
+    col_d = torch.full((b, m), float("inf"), dtype=src.dtype, device=src.device)
+    col_i = torch.zeros((b, m), dtype=torch.int64, device=src.device)
+    for s in range(0, n, chunk):
+        d = ref_sq[:, None, :] - 2.0 * torch.bmm(src[:, s:s + chunk], ref_t)
+        parts.append(torch.argmin(d, dim=-1))
+        dc = d + src_sq[:, s:s + chunk, None]
+        arg = torch.argmin(dc, dim=1)                          # (B, M)
+        best = torch.gather(dc, 1, arg[:, None, :])[:, 0]
+        take = best < col_d
+        col_d = torch.where(take, best, col_d)
+        col_i = torch.where(take, arg + s, col_i)
+    return torch.cat(parts, dim=1), col_i
+
+
+def _check_pair(src: torch.Tensor, ref: torch.Tensor, what: str) -> None:
+    """Shapes and sizes every search takes; raises ValueError otherwise."""
+    if src.dim() != 3 or ref.dim() != 3 or src.shape[0] != ref.shape[0] \
+            or src.shape[2] != ref.shape[2]:
+        raise ValueError(f"shapes {tuple(src.shape)} x {tuple(ref.shape)}")
+    n, c = src.shape[1], src.shape[2]
+    m = ref.shape[1]
+    if not (1 <= c <= MAX_CHANNELS) or n < 1 or m < 1:
+        raise ValueError(f"{what} needs 1 <= C <= {MAX_CHANNELS} and "
+                         f"non-empty clouds; got N={n}, M={m}, C={c}")
+
+
+def _check_cuda(src: torch.Tensor, ref: torch.Tensor) -> None:
+    """What the kernels take besides shapes; raises otherwise."""
+    if src.device.type != "cuda" or ref.device != src.device:
+        raise ValueError(f"devices {src.device}, {ref.device}")
+    if src.dtype != torch.float32 or ref.dtype != torch.float32:
+        raise TypeError(f"dtypes {src.dtype}, {ref.dtype}: float32 only")
+    if not (src.is_contiguous() and ref.is_contiguous()):
+        raise ValueError("src and ref must be contiguous")
+
+
 def _lib():
     lib = _build.load("match_argmin")
     fn = lib.match_argmin_launch
@@ -53,24 +107,14 @@ def match_argmin(src: torch.Tensor, ref: torch.Tensor,
     CUDA tensors launch the kernel; CPU tensors take `match_argmin_plain`.
     Requires C <= 128. `low_precision` (bf16 operands) is not ported.
     """
-    if src.dim() != 3 or ref.dim() != 3 or src.shape[0] != ref.shape[0] \
-            or src.shape[2] != ref.shape[2]:
-        raise ValueError(f"shapes {tuple(src.shape)} x {tuple(ref.shape)}")
+    _check_pair(src, ref, "match_argmin")
     if low_precision:
         raise NotImplementedError("match_argmin low_precision (bf16 operands)")
-    b, n, c = src.shape
-    m = ref.shape[1]
-    if not (1 <= c <= MAX_CHANNELS) or n < 1 or m < 1:
-        raise ValueError(f"match_argmin needs 1 <= C <= {MAX_CHANNELS} and "
-                         f"non-empty clouds; got N={n}, M={m}, C={c}")
     if src.device.type == "cpu" and ref.device.type == "cpu":
         return match_argmin_plain(src, ref)
-    if src.device.type != "cuda" or ref.device != src.device:
-        raise ValueError(f"devices {src.device}, {ref.device}")
-    if src.dtype != torch.float32 or ref.dtype != torch.float32:
-        raise TypeError(f"dtypes {src.dtype}, {ref.dtype}: float32 only")
-    if not (src.is_contiguous() and ref.is_contiguous()):
-        raise ValueError("src and ref must be contiguous")
+    _check_cuda(src, ref)
+    b, n, c = src.shape
+    m = ref.shape[1]
     ref_sq = torch.sum(ref * ref, dim=-1)
     out = torch.empty((b, n), dtype=torch.int64, device=src.device)
     fn = _lib()
@@ -84,3 +128,49 @@ def match_argmin(src: torch.Tensor, ref: torch.Tensor,
 
 
 match_argmin.launches = 0
+
+
+def _lib_bidir():
+    lib = _build.load("match_bidir")
+    fn = lib.match_bidir_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def match_argmin_bidirectional(src: torch.Tensor, ref: torch.Tensor,
+                               low_precision: bool = False):
+    """(B, N, C) x (B, M, C) -> (idx (B, N), ridx (B, M)) int64: the nearest
+    ref row of every src row and the nearest src row of every ref row.
+
+    CUDA tensors launch the kernel; CPU tensors take
+    `match_argmin_bidirectional_plain`. Requires C <= 128. `low_precision`
+    (bf16 operands) is not ported. One call counts one launch, though the
+    kernel's launcher issues three device operations.
+    """
+    _check_pair(src, ref, "match_argmin_bidirectional")
+    if low_precision:
+        raise NotImplementedError(
+            "match_argmin_bidirectional low_precision (bf16 operands)")
+    if src.device.type == "cpu" and ref.device.type == "cpu":
+        return match_argmin_bidirectional_plain(src, ref)
+    _check_cuda(src, ref)
+    b, n, c = src.shape
+    m = ref.shape[1]
+    src_sq = torch.sum(src * src, dim=-1)
+    ref_sq = torch.sum(ref * ref, dim=-1)
+    idx = torch.empty((b, n), dtype=torch.int64, device=src.device)
+    ridx = torch.empty((b, m), dtype=torch.int64, device=src.device)
+    fn = _lib_bidir()
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(src.data_ptr(), ref.data_ptr(), src_sq.data_ptr(),
+                    ref_sq.data_ptr(), idx.data_ptr(), ridx.data_ptr(),
+                    b, n, m, c, stream)
+    _build.check(status, "match_bidir_launch")
+    match_argmin_bidirectional.launches += 1
+    return idx, ridx
+
+
+match_argmin_bidirectional.launches = 0

@@ -1,13 +1,17 @@
-"""Correspondence search (deepsir_tpu/ops/distance.py::nearest_neighbour_index).
+"""Correspondence search and the mutual gate (deepsir_tpu/ops/distance.py).
 
-A CUDA tensor goes to kernel K2 (ops/cuda_match.py), a CPU tensor to its
-plain PyTorch version. The search carries no gradient.
+A CUDA tensor goes to kernel K2, or K3 for both directions
+(ops/cuda_match.py), a CPU tensor to their plain PyTorch versions. The
+searches carry no gradient.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from deepsir_tpu_torch.ops.cuda_match import match_argmin
+from deepsir_tpu_torch.ops.cuda_match import match_argmin, match_argmin_bidirectional
+from deepsir_tpu_torch.ops.gather import gather_points
 
 
 @torch.no_grad()
@@ -19,3 +23,39 @@ def nearest_neighbour_index(feat_src: torch.Tensor, feat_ref: torch.Tensor,
     """
     return match_argmin(feat_src.contiguous(), feat_ref.contiguous(),
                         low_precision=low_precision)
+
+
+@torch.no_grad()
+def nearest_neighbour_bidirectional(feat_src: torch.Tensor, feat_ref: torch.Tensor):
+    """Both directions of the search in one pass: feat_src (B, N, C),
+    feat_ref (B, M, C) -> (idx (B, N), ridx (B, M)) int64, where idx[i] is
+    the nearest ref row of src row i and ridx[j] the nearest src row of ref
+    row j."""
+    return match_argmin_bidirectional(feat_src.contiguous(), feat_ref.contiguous())
+
+
+def mutual_gate(idx: torch.Tensor, reverse_idx: torch.Tensor, min_keep: int = 3,
+                src_xyz: Optional[torch.Tensor] = None,
+                tol: float = 0.0) -> torch.Tensor:
+    """Mutual nearest-neighbour mask over a correspondence set.
+
+    idx (..., N): src row i matched to ref row idx[i]; reverse_idx (..., M):
+    ref row j matched to src row reverse_idx[j]. Returns a float32 (..., N)
+    mask: 1 where the match is reciprocal (reverse_idx[idx[i]] == i), else 0.
+    With tol > 0 (needs src_xyz (..., N, 3)) a match is kept when the reverse
+    match lands within tol of the source point. Where fewer than `min_keep`
+    matches of a cloud survive, its gate opens fully (all ones), so the solve
+    never sees an empty correspondence set.
+    """
+    n = idx.shape[-1]
+    back = gather_points(reverse_idx[..., None], idx)[..., 0]   # (..., N)
+    if tol > 0.0:
+        if src_xyz is None:
+            raise ValueError("the relaxed mutual gate (tol > 0) needs src_xyz")
+        d2 = torch.sum((gather_points(src_xyz, back) - src_xyz) ** 2, dim=-1)
+        mutual = d2 <= tol * tol
+    else:
+        mutual = back == torch.arange(n, dtype=back.dtype, device=back.device)
+    keep = torch.sum(mutual, dim=-1, keepdim=True) >= min_keep
+    return torch.where(keep, mutual.to(torch.float32),
+                       torch.ones((), dtype=torch.float32, device=idx.device))

@@ -2,6 +2,9 @@
 
 Random subsampling keeps the reference's contract: the first N/r points of a
 cloud in randomized order are a uniform random sample ("first" sampling).
+For curve-sorted clouds (ops/morton.py) every r-th point is the uniform
+sample and keeps the curve order ("strided" sampling), so the searches of
+every level may be restricted to curve-rank windows (`window_halo`).
 Levels are separate tensors with a leading batch dim.
 """
 from __future__ import annotations
@@ -31,24 +34,27 @@ class Pyramid(NamedTuple):
 
 def build_pyramid(xyz: torch.Tensor, num_knn: int = 16,
                   ratios: Tuple[int, ...] = (4, 4, 4, 4),
-                  sample: str = "first") -> Pyramid:
+                  sample: str = "first", window_halo: int = 0) -> Pyramid:
     """Build the index pyramid for a batch of clouds (B, N, 3).
 
     Per level: one num_knn self-search and one 1-NN search from the level's
-    points into the next level's points.
+    points into the next level's points, both passed `window_halo`
+    (ops/knn.py). sample is "first" (shuffled clouds) or "strided"
+    (curve-sorted clouds).
     """
-    if sample != "first":
+    if sample not in ("first", "strided"):
         raise NotImplementedError(f"build_pyramid sample={sample!r}")
     xyzs, neighs, pools, interps = [], [], [], []
     pc = xyz.contiguous()
     for r in ratios:
         n_next = pc.shape[-2] // r
-        neigh, _ = knn(pc, pc, num_knn)                     # (B, Nl, K)
-        sub = pc[:, :n_next].contiguous()                   # random sample
-        up, _ = knn(pc, sub, 1)                             # (B, Nl, 1)
+        neigh, _ = knn(pc, pc, num_knn, window_halo)        # (B, Nl, K)
+        step = r if sample == "strided" else 1
+        sub = pc[:, ::step][:, :n_next].contiguous()
+        up, _ = knn(pc, sub, 1, window_halo)                # (B, Nl, 1)
         xyzs.append(pc)
         neighs.append(neigh)
-        pools.append(neigh[:, :n_next])
+        pools.append(neigh[:, ::step][:, :n_next])
         interps.append(up[..., 0])
         pc = sub
     return Pyramid(tuple(xyzs), tuple(neighs), tuple(pools), tuple(interps))

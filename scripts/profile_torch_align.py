@@ -1,10 +1,13 @@
 """Where the time goes in the PyTorch port's align inference forward, on one
 CUDA card.
 
-    python scripts/profile_torch_align.py [--batch 1] [--reps 3] [--out FILE]
+    python scripts/profile_torch_align.py [--path default] [--batch 1] [--reps 3]
+                                          [--out FILE]
 
 Drives `device_batch` -> `Network.forward_align` at chip_smoke.py's full-width
-configuration (18000 points, 5 iterations, seeded random weights) and prints:
+configuration (18000 points, 5 iterations, seeded random weights) along one of
+chip_smoke.py's paths (default, F, F+gate, M; M's clouds are curve-sorted on
+the host, outside the timed steps) and prints:
 - host time per step under `torch.cuda.synchronize()`: pyramid build
   (`device_batch`), backbone pass, scoring, the whole forward;
 - torch.profiler over one batch: device time by kernel (top 25), the number
@@ -28,7 +31,9 @@ sys.path.insert(0, str(ROOT))
 
 
 def main() -> int:
+    import chip_smoke
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--path", default="default", choices=list(chip_smoke.PATHS))
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--out", type=Path, default=None, help="JSON file to write")
@@ -41,19 +46,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_align: no CUDA device", flush=True)
         return 1
-    import chip_smoke
     from deepsir_tpu_torch.config import ModelConfig
     from deepsir_tpu_torch.models.network import ForwardOptions
     from deepsir_tpu_torch.training import device_batch
     from deepsir_tpu_torch.utils.params import init_params, load_network
 
     dev = torch.device("cuda", 0)
+    options, _ = chip_smoke.PATHS[args.path]
     cfg = ModelConfig(feat_len=chip_smoke.FEAT_LEN, num_points=chip_smoke.N_POINTS,
-                      num_reg_iter=chip_smoke.N_ITERS)
+                      num_reg_iter=chip_smoke.N_ITERS, **options)
     model = load_network(cfg, init_params(cfg, seed=0), device=dev)
     opts = ForwardOptions(num_iter=chip_smoke.N_ITERS, clip_weight=True)
     rng = np.random.default_rng(0)
-    feeds = [chip_smoke.make_arrays(rng, args.batch) for _ in range(args.reps + 1)]
+    morton = cfg.pyramid_order == "morton"
+    feeds = [chip_smoke.make_arrays(rng, args.batch, morton) for _ in range(args.reps + 1)]
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -79,7 +85,8 @@ def main() -> int:
                 steps[key].append(t)
     step_ms = {k: float(np.median(v)) for k, v in steps.items()}
     for k, v in step_ms.items():
-        print(f"{k:>14}: {v:9.3f} ms (median of {args.reps}, B={args.batch})", flush=True)
+        print(f"{k:>14}: {v:9.3f} ms (median of {args.reps}, path {args.path}, "
+              f"B={args.batch})", flush=True)
 
     arrays = feeds[0]
     torch.cuda.synchronize()
@@ -117,7 +124,8 @@ def main() -> int:
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "batch": args.batch, "step_ms": step_ms, "window_ms": window_ms,
+        "path": args.path, "options": options, "batch": args.batch,
+        "step_ms": step_ms, "window_ms": window_ms,
         "device_busy_ms": busy_ms, "device_events": events, "top": top}, indent=1))
     return 0
 

@@ -51,11 +51,14 @@ def test_sources_do_not_import_the_jax_package():
 
 def test_kernel_sources_include_no_torch_headers():
     sources = sorted((PORT / "csrc").glob("*.cu"))
-    assert [s.name for s in sources] == ["knn_topk.cu", "match_argmin.cu"]
-    for src in sources:
+    assert [s.name for s in sources] == ["knn_topk.cu", "knn_windowed.cu",
+                                         "match_argmin.cu", "match_bidir.cu"]
+    for src in sources + sorted((PORT / "csrc").glob("*.cuh")):
         text = src.read_text()
         assert "torch/extension.h" not in text and "cutlass" not in text.lower()
-        assert "Replaces the TPU kernel deepsir_tpu/ops/pallas_" in text
+        assert "#include <torch" not in text and "ATen" not in text
+    for src in sources:
+        assert "Replaces the TPU kernel deepsir_tpu/ops/pallas_" in src.read_text()
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -83,3 +86,4 @@ def test_build_finds_no_nvcc_and_says_so(monkeypatch, tmp_path):
     a = _build.library_path("knn_topk")
     assert a.parent == PORT / "_build" and a.name.startswith("knn_topk-")
     assert a != _build.library_path("match_argmin")
+    assert _build.library_path("knn_windowed").name.startswith("knn_windowed-")

@@ -139,8 +139,8 @@ def test_score_points_matches_jax(rng):
 
 @pytest.mark.parametrize("option,value", [
     ("use_ppf", True), ("fc_norm", "batch"), ("randla_skips", "post"),
-    ("pyramid_order", "morton"), ("inlier_extra_feats", "dist"),
-    ("mutual_check", True), ("absolute_pose_solve", True), ("refine_stride", 2),
+    ("pyramid_order", "hilbert"), ("inlier_extra_feats", "dist,ppf"),
+    ("mutual_check_tol", -0.5), ("absolute_pose_solve", True), ("refine_stride", 2),
     ("inlier_num_knn", 8), ("backbone_num_knn", 8), ("inlier_num_layers", 1),
     ("compute_dtype", "bfloat16"),
 ])
