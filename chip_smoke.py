@@ -4,7 +4,9 @@
 
 Builds the port's CUDA kernels from csrc/ with nvcc, holds each kernel
 against its plain PyTorch version at the shapes of the align forward and
-times it, drives the align inference forward (`device_batch` ->
+times it (the match kernels K2 and K3 in both operand forms: fp32-grade
+3xTF32, which the paths run, and bf16 `low_precision`, each timed in turns
+with a PyTorch yardstick), drives the align inference forward (`device_batch` ->
 `Network.forward_align`) at full width (18000 points, 5 iterations) with
 seeded random weights along four paths:
 - default: the default configuration (kernels K1, K2), batch 1 and 2;
@@ -44,8 +46,13 @@ TIMED_REPS = 3
 KERNEL_SOURCES = ("knn_topk", "match_argmin", "match_bidir", "knn_windowed")
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
-PEAK_FP32_FLOPS = 67e12
+PEAK_FP32_FLOPS = 67e12          # CUDA cores
+PEAK_TF32_FLOPS = 495e12         # tensor cores
+PEAK_BF16_FLOPS = 989e12         # tensor cores
 PEAK_BYTES = 3.35e12
+# the match kernels' operand forms: (low_precision flag, tensor-core
+# products per multiply-add, their peak)
+FORMS = {"fp32x3": (False, 3, PEAK_TF32_FLOPS), "bf16": (True, 1, PEAK_BF16_FLOPS)}
 
 FLAGSHIP = dict(inlier_extra_feats="dist,recip", clip_weight_thresh=0.05)
 # path -> (ModelConfig options, launches per batch of K1, K4, K2, K3)
@@ -58,6 +65,7 @@ PATHS = {
 RUNS = (("default", 1), ("default", 2), ("F", 1), ("F", 2), ("F+gate", 1),
         ("M", 1), ("M", 2))
 COUNTED = ("knn_topk", "knn_topk_windowed", "match_argmin", "match_argmin_bidirectional")
+LP_COUNTED = COUNTED[2:]          # these also count their bf16-form launches
 
 
 def log(msg: str) -> None:
@@ -87,9 +95,9 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: float, nbytes: float):
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
     """(least time in ms, what bounds it) at the published peaks."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -99,6 +107,19 @@ def kernels():
     from deepsir_tpu_torch.ops.cuda_match import match_argmin, match_argmin_bidirectional
     return dict(zip(COUNTED, (knn_topk, knn_topk_windowed, match_argmin,
                               match_argmin_bidirectional)))
+
+
+def reset_counts(counted) -> None:
+    for fn in counted.values():
+        fn.launches = 0
+    for key in LP_COUNTED:
+        counted[key].launches_lp = 0
+
+
+def read_counts(counted):
+    """(launches per kernel, bf16-form launches per match kernel)."""
+    return ({k: fn.launches for k, fn in counted.items()},
+            {k: counted[k].launches_lp for k in LP_COUNTED})
 
 
 def make_arrays(rng, batch: int, morton: bool = False):
@@ -199,16 +220,26 @@ def check_knn(torch, dev, gen):
             "library_ms": main["library_ms"], "shapes": shapes}
 
 
-def _near_ties(torch, what, a, b, qry, cand, idx, pidx):
+def _near_ties(torch, what, a, b, qry, cand, idx, pidx, low_precision=False):
     """Kernel indices `idx` into `cand` for rows of `qry` may differ from the
     plain version's `pidx` only on near ties: at most 0.1% of rows, each
-    within 1e-5 relative of the plain minimum (float64 distances). Returns
-    (rows that differ, max abs distance gap, max relative gap)."""
+    within 1e-5 relative of the plain minimum (float64 distances). Under
+    `low_precision` the distance is the bf16 form's own,
+    |q|^2 + |c|^2 - 2 bf16(q).bf16(c) with the norms from the fp32 inputs, so
+    that the rule measures the order of the sums and not bf16 rounding.
+    Returns (rows that differ, max abs distance gap, max relative gap)."""
     torch.cuda.synchronize()
     q64, c64 = qry.double(), cand.double()
+    if low_precision:
+        qb, cb = qry.to(torch.bfloat16).double(), cand.to(torch.bfloat16).double()
+        q_sq, c_sq = (q64 * q64).sum(-1), (c64 * c64).sum(-1)
 
-    def dist(i):
-        return ((q64 - torch.gather(c64, 1, i[..., None].expand(q64.shape))) ** 2).sum(-1)
+        def dist(i):
+            rows = torch.gather(cb, 1, i[..., None].expand(qb.shape))
+            return q_sq + torch.gather(c_sq, 1, i) - 2.0 * (qb * rows).sum(-1)
+    else:
+        def dist(i):
+            return ((q64 - torch.gather(c64, 1, i[..., None].expand(q64.shape))) ** 2).sum(-1)
     d_k, d_p = dist(idx), dist(pidx)
     differ = idx != pidx
     gap = (d_k - d_p).abs()
@@ -220,149 +251,208 @@ def _near_ties(torch, what, a, b, qry, cand, idx, pidx):
     return rows, float(gap.max()), rel
 
 
-def _match_agree(torch, name, src, ref, idx, pidx):
-    """K2's near-tie rule (see _near_ties)."""
-    return _near_ties(torch, f"K2 {name}", src.shape[1], ref.shape[1], src, ref, idx, pidx)
-
-
 def _unit_descriptors(torch, gen, dev, b, n, c):
     x = torch.randn(b, n, c, generator=gen).to(dev)
     return x / x.norm(dim=-1, keepdim=True)
 
 
-def check_match(torch, dev, gen):
-    """K2 against match_argmin_plain on the card; returns the kernels-line entry."""
-    from deepsir_tpu_torch.ops.cuda_match import match_argmin, match_argmin_plain
-    n, c = N_POINTS, 64
+def _in_turns(kernel, library, reps: int, library_reps: int):
+    """Kernel and yardstick timed in turns (kernel, library, library, kernel);
+    returns (kernel ms, library ms, every run)."""
+    k1, l1 = cuda_ms(kernel, reps), cuda_ms(library, library_reps)
+    l2, k2 = cuda_ms(library, library_reps), cuda_ms(kernel, reps)
+    return (k1 + k2) / 2, (l1 + l2) / 2, {"kernel_runs": [k1, k2], "library_runs": [l1, l2]}
 
+
+def _rand(torch, gen, dev):
     def rand(*shape):
         return torch.randn(*shape, generator=gen).to(dev)
+    return rand
 
-    # ragged sizes, other widths and planted exact ties, checked but not timed
-    for name, s, r in [("C=100 B=2", rand(2, 1000, 100), rand(2, 777, 100)),
-                       ("C=3", rand(1, 300, 3), rand(1, 5000, 3)),
-                       ("M=1", rand(1, 65, 64), rand(1, 1, 64))]:
-        _match_agree(torch, name, s, r, match_argmin(s, r), match_argmin_plain(s, r))
-    base = rand(1, 300, 64)
-    tied = match_argmin(base[:, :100].contiguous(), torch.cat([base, base.flip(1), base], 1))
-    if not torch.equal(tied[0], torch.arange(100, device=dev)):
-        raise AssertionError("K2: planted exact ties did not go to the lowest index")
-    log("K2 agrees with its plain version at C in {3, 64, 100}, ragged N and M, "
-        "M=1, and planted ties go to the lowest index")
 
-    shapes, err_max, rows_max = [], 0.0, 0
-    for b in (1, 2):
-        src = _unit_descriptors(torch, gen, dev, b, n, c)
-        ref = _unit_descriptors(torch, gen, dev, b, n, c)
-        rows, err, rel = _match_agree(torch, f"18000 x 18000 B={b}", src, ref,
-                                      match_argmin(src, ref), match_argmin_plain(src, ref))
-        err_max, rows_max = max(err_max, err), max(rows_max, rows)
-        ms = cuda_ms(lambda: match_argmin(src, ref), 10)
-        plain_ms = cuda_ms(lambda: match_argmin_plain(src, ref), 3)
-        ref_sq = (ref * ref).sum(-1)
+def _match_cases(torch, dev, gen):
+    """Planted exact ties (every row of `base` three times, the first 100
+    rows of `base` as queries) and the paths' 18000 x 18000 x 64 unit
+    descriptors at B = 1, 2: the instances both match kernels take besides
+    their ragged ones."""
+    base = _rand(torch, gen, dev)(1, 300, 64)
+    tripled = torch.cat([base, base.flip(1), base], 1)
+    big = [(b, _unit_descriptors(torch, gen, dev, b, N_POINTS, 64),
+            _unit_descriptors(torch, gen, dev, b, N_POINTS, 64)) for b in (1, 2)]
+    return (base[:, :100].contiguous(), tripled), big
 
-        def library():
-            for i in range(b):
-                for s in range(0, n, 4096):
-                    torch.addmm(ref_sq[i], src[i, s:s + 4096], ref[i].T,
-                                alpha=-2.0).argmin(dim=-1)
-        library_ms = cuda_ms(library, 3)
-        bms, by = bound_ms(2.0 * b * n * n * c, 4.0 * b * (2 * n * c + n) + 8.0 * b * n)
-        shapes.append({"case": f"B={b}", "shape": f"src {tuple(src.shape)} x ref {tuple(ref.shape)}",
-                       "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                       "bound_ms": bms, "bound_by": by, "rows_differ": rows})
-        log(f"K2 src{tuple(src.shape)} ref{tuple(ref.shape)}: {rows} rows differ "
-            f"(near ties, worst relative gap {rel:.3g}); kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, addmm+argmin {library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+
+def _form_record(form, shapes, err_max, rows_max, library):
+    """The per-form part of a match kernel's kernels-line entry (B=1 at the
+    top, every timed shape under `shapes`)."""
     main = shapes[0]
-    return {"name": "match_argmin (K2)", "route": "cuda",
-            "source": "deepsir_tpu_torch/csrc/match_argmin.cu",
-            "replaces": "deepsir_tpu/ops/pallas_match.py:215",
-            "shape": main["shape"], "max_abs_err": err_max, "rows_differ": rows_max,
-            "ms": main["ms"], "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"], "shapes": shapes}
+    keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_fp32_ms")
+    return {"form": form, **{k: main[k] for k in keys}, "kernel_ms": main["ms"],
+            "library": library, "max_abs_err": err_max, "rows_differ": rows_max,
+            "shapes": shapes}
 
 
-def _bidir_agree(torch, name, src, ref, got, want):
-    """K3's rows and columns, each by K2's near-tie rule; returns
+def _match_entry(name, source, replaces, forms):
+    """A match kernel's kernels-line entry: the fp32-grade form, which the
+    paths run, at the top level; both forms under `forms`."""
+    return {"name": name, "route": "cuda", "source": f"deepsir_tpu_torch/csrc/{source}",
+            "core": "deepsir_tpu_torch/csrc/match_core.cuh",
+            "replaces": f"deepsir_tpu/ops/{replaces}", **forms["fp32x3"], "forms": forms}
+
+
+def _timed_match(b, src, ref, kernel, plain, library, products, peak, nbytes, agree):
+    """Agreement and times of one form at one 18000 x 18000 shape."""
+    n, c = src.shape[1], src.shape[2]
+    rows, err = agree()
+    plain_ms = cuda_ms(plain, 3)
+    ms, library_ms, runs = _in_turns(kernel, library, 10, 3)
+    flops = 2.0 * b * n * ref.shape[1] * c
+    bms, by = bound_ms(products * flops, nbytes, peak)
+    return {"case": f"B={b}", "shape": f"src {tuple(src.shape)} x ref {tuple(ref.shape)}",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bms,
+            "bound_by": by, "bound_fp32_ms": bound_ms(flops, nbytes)[0],
+            "rows_differ": rows, "max_abs_err": err, **runs}
+
+
+def _distances(torch, lp):
+    """The yardsticks' distance tile ref_sq - 2 s.r as one fp32 `addmm`; in
+    the bf16 form the operands are bf16 (cast once, outside the timed
+    loop), and the sums and the tile stay fp32 (`out_dtype`)."""
+    def tile(ref_sq, s, r):
+        if lp:
+            return torch.addmm(ref_sq, s, r.T, alpha=-2.0, out_dtype=torch.float32)
+        return torch.addmm(ref_sq, s, r.T, alpha=-2.0)
+    return tile
+
+
+def check_match(torch, dev, gen):
+    """K2 in both forms against match_argmin_plain on the card; returns the
+    kernels-line entry."""
+    from deepsir_tpu_torch.ops.cuda_match import match_argmin, match_argmin_plain
+    rand = _rand(torch, gen, dev)
+    # ragged sizes and other widths, checked but not timed
+    others = [("C=100 B=2", rand(2, 1000, 100), rand(2, 777, 100)),
+              ("C=3", rand(1, 300, 3), rand(1, 5000, 3)),
+              ("M=1", rand(1, 65, 64), rand(1, 1, 64))]
+    (head, tripled), big = _match_cases(torch, dev, gen)
+    forms = {}
+    for form, (lp, products, peak) in FORMS.items():
+        for name, s, r in others:
+            _near_ties(torch, f"K2 {form} {name}", s.shape[1], r.shape[1], s, r,
+                       match_argmin(s, r, lp), match_argmin_plain(s, r, lp), lp)
+        tied = match_argmin(head, tripled, lp)
+        if not torch.equal(tied[0], torch.arange(100, device=tied.device)):
+            raise AssertionError(f"K2 {form}: planted exact ties did not go to the lowest index")
+        log(f"K2 {form} agrees with its plain version at C in {{3, 64, 100}}, ragged N "
+            f"and M, M=1, and planted ties go to the lowest index")
+        library = ("chunked addmm + argmin" if not lp else
+                   "chunked bf16 addmm (fp32 sums and output) + argmin")
+        tile = _distances(torch, lp)
+        shapes, err_max, rows_max = [], 0.0, 0
+        for b, src, ref in big:
+            n = src.shape[1]
+            ref_sq = (ref * ref).sum(-1)
+            ys, yr = (src.bfloat16(), ref.bfloat16()) if lp else (src, ref)
+
+            def yardstick():
+                for i in range(b):
+                    for s0 in range(0, n, 4096):
+                        tile(ref_sq[i], ys[i, s0:s0 + 4096], yr[i]).argmin(dim=-1)
+
+            def agree():
+                rows, err, _ = _near_ties(torch, f"K2 {form} 18000 x 18000 B={b}", n, n,
+                                          src, ref, match_argmin(src, ref, lp),
+                                          match_argmin_plain(src, ref, lp), lp)
+                return rows, err
+            rec = _timed_match(b, src, ref, lambda: match_argmin(src, ref, lp),
+                               lambda: match_argmin_plain(src, ref, lp), yardstick,
+                               products, peak, 4.0 * b * (2 * n * 64 + n) + 8.0 * b * n, agree)
+            shapes.append(rec)
+            err_max, rows_max = max(err_max, rec["max_abs_err"]), max(rows_max, rec["rows_differ"])
+            log(f"K2 {form} {rec['shape']}: {rec['rows_differ']} rows differ (near ties); "
+                f"kernel {rec['ms']:.4f} ms {rec['kernel_runs']}, plain {rec['plain_ms']:.4f} "
+                f"ms, {library} {rec['library_ms']:.4f} ms {rec['library_runs']}, bound "
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; fp32 CUDA cores "
+                f"{rec['bound_fp32_ms']:.4f} ms)")
+        forms[form] = _form_record(form, shapes, err_max, rows_max, library)
+    return _match_entry("match_argmin (K2)", "match_argmin.cu", "pallas_match.py:215", forms)
+
+
+def _bidir_agree(torch, name, src, ref, got, want, lp=False):
+    """K3's rows and columns, each by the near-tie rule; returns
     (rows + columns that differ, max abs distance gap)."""
     (idx, ridx), (pidx, pridx) = got, want
     r1, g1, _ = _near_ties(torch, f"K3 rows {name}", src.shape[1], ref.shape[1],
-                           src, ref, idx, pidx)
+                           src, ref, idx, pidx, lp)
     r2, g2, _ = _near_ties(torch, f"K3 columns {name}", ref.shape[1], src.shape[1],
-                           ref, src, ridx, pridx)
+                           ref, src, ridx, pridx, lp)
     return r1 + r2, max(g1, g2)
 
 
 def check_bidir(torch, dev, gen):
-    """K3 against match_argmin_bidirectional_plain on the card; returns the
-    kernels-line entry."""
+    """K3 in both forms against match_argmin_bidirectional_plain on the card;
+    returns the kernels-line entry."""
     from deepsir_tpu_torch.ops.cuda_match import (match_argmin_bidirectional,
                                                   match_argmin_bidirectional_plain)
-    n, c = N_POINTS, 64
     kern, plain = match_argmin_bidirectional, match_argmin_bidirectional_plain
+    rand = _rand(torch, gen, dev)
+    others = [("ragged N!=M B=2", rand(2, 1000, 64), rand(2, 777, 64)),
+              ("C=100", rand(1, 700, 100), rand(1, 1300, 100)),
+              ("C=3", rand(1, 300, 3), rand(1, 5000, 3)),
+              ("N=1", rand(1, 1, 64), rand(1, 500, 64)),
+              ("M=1", rand(1, 65, 64), rand(1, 1, 64))]
+    (head, tripled), big = _match_cases(torch, dev, gen)
+    forms = {}
+    for form, (lp, products, peak) in FORMS.items():
+        for name, s, r in others:
+            _bidir_agree(torch, f"{form} {name}", s, r, kern(s, r, lp), plain(s, r, lp), lp)
+        want = torch.arange(100, device=head.device)
+        if not torch.equal(kern(head, tripled, lp)[0][0], want):
+            raise AssertionError(f"K3 {form}: planted row ties did not go to the lowest ref index")
+        if not torch.equal(kern(tripled, head, lp)[1][0], want):
+            raise AssertionError(f"K3 {form}: planted column ties did not go to the lowest "
+                                 "src index")
+        log(f"K3 {form} agrees with its plain version in both directions at ragged "
+            f"N != M, C in {{3, 64, 100}}, N=1, M=1, and planted ties go to the lowest "
+            f"index both ways")
+        library = ("chunked addmm + argmin both ways" if not lp else
+                   "chunked bf16 addmm (fp32 sums and output) + argmin both ways")
+        tile = _distances(torch, lp)
+        shapes, err_max, rows_max = [], 0.0, 0
+        for b, src, ref in big:
+            n = src.shape[1]
+            ref_sq, src_sq = (ref * ref).sum(-1), (src * src).sum(-1)
+            ys, yr = (src.bfloat16(), ref.bfloat16()) if lp else (src, ref)
 
-    def rand(*shape):
-        return torch.randn(*shape, generator=gen).to(dev)
+            def yardstick():
+                for i in range(b):
+                    col_d = torch.full((n,), float("inf"), device=src.device)
+                    col_i = torch.zeros(n, dtype=torch.int64, device=src.device)
+                    for s0 in range(0, n, 4096):
+                        d = tile(ref_sq[i], ys[i, s0:s0 + 4096], yr[i])
+                        d.argmin(dim=-1)
+                        cmin, carg = (d + src_sq[i, s0:s0 + 4096, None]).min(dim=0)
+                        take = cmin < col_d
+                        col_d = torch.where(take, cmin, col_d)
+                        col_i = torch.where(take, carg + s0, col_i)
 
-    for name, s, r in [("ragged N!=M B=2", rand(2, 1000, 64), rand(2, 777, 64)),
-                       ("C=100", rand(1, 700, 100), rand(1, 1300, 100)),
-                       ("C=3", rand(1, 300, 3), rand(1, 5000, 3)),
-                       ("N=1", rand(1, 1, 64), rand(1, 500, 64)),
-                       ("M=1", rand(1, 65, 64), rand(1, 1, 64))]:
-        _bidir_agree(torch, name, s, r, kern(s, r), plain(s, r))
-    # planted exact ties: every row three times, the lowest copy must win
-    base = rand(1, 300, 64)
-    tripled = torch.cat([base, base.flip(1), base], 1)
-    head = base[:, :100].contiguous()
-    want = torch.arange(100, device=dev)
-    if not torch.equal(kern(head, tripled)[0][0], want):
-        raise AssertionError("K3: planted row ties did not go to the lowest ref index")
-    if not torch.equal(kern(tripled, head)[1][0], want):
-        raise AssertionError("K3: planted column ties did not go to the lowest src index")
-    log("K3 agrees with its plain version in both directions at ragged N != M, "
-        "C in {3, 64, 100}, N=1, M=1, and planted ties go to the lowest index "
-        "both ways")
-
-    shapes, err_max, rows_max = [], 0.0, 0
-    for b in (1, 2):
-        src = _unit_descriptors(torch, gen, dev, b, n, c)
-        ref = _unit_descriptors(torch, gen, dev, b, n, c)
-        rows, err = _bidir_agree(torch, f"18000 x 18000 B={b}", src, ref,
-                                 kern(src, ref), plain(src, ref))
-        err_max, rows_max = max(err_max, err), max(rows_max, rows)
-        ms = cuda_ms(lambda: kern(src, ref), 10)
-        plain_ms = cuda_ms(lambda: plain(src, ref), 3)
-        ref_sq, src_sq = (ref * ref).sum(-1), (src * src).sum(-1)
-
-        def library():
-            for i in range(b):
-                col_d = torch.full((n,), float("inf"), device=dev)
-                col_i = torch.zeros(n, dtype=torch.int64, device=dev)
-                for s in range(0, n, 4096):
-                    d = torch.addmm(ref_sq[i], src[i, s:s + 4096], ref[i].T, alpha=-2.0)
-                    d.argmin(dim=-1)
-                    cmin, carg = (d + src_sq[i, s:s + 4096, None]).min(dim=0)
-                    take = cmin < col_d
-                    col_d = torch.where(take, cmin, col_d)
-                    col_i = torch.where(take, carg + s, col_i)
-        library_ms = cuda_ms(library, 3)
-        bms, by = bound_ms(2.0 * b * n * n * c, 4.0 * b * 2 * (n * c + n) + 16.0 * b * n)
-        shapes.append({"case": f"B={b}", "shape": f"src {tuple(src.shape)} x ref {tuple(ref.shape)}",
-                       "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                       "bound_ms": bms, "bound_by": by, "rows_and_columns_differ": rows})
-        log(f"K3 src{tuple(src.shape)} ref{tuple(ref.shape)}: {rows} rows + columns "
-            f"differ (near ties); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"addmm+argmin both ways {library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
-    main = shapes[0]
-    return {"name": "match_argmin_bidirectional (K3)", "route": "cuda",
-            "source": "deepsir_tpu_torch/csrc/match_bidir.cu",
-            "replaces": "deepsir_tpu/ops/pallas_match.py:147",
-            "shape": main["shape"], "max_abs_err": err_max, "rows_differ": rows_max,
-            "ms": main["ms"], "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"], "shapes": shapes}
+            def agree():
+                return _bidir_agree(torch, f"{form} 18000 x 18000 B={b}", src, ref,
+                                    kern(src, ref, lp), plain(src, ref, lp), lp)
+            rec = _timed_match(b, src, ref, lambda: kern(src, ref, lp),
+                               lambda: plain(src, ref, lp), yardstick, products, peak,
+                               4.0 * b * 2 * (n * 64 + n) + 16.0 * b * n, agree)
+            rec["rows_and_columns_differ"] = rec["rows_differ"]
+            shapes.append(rec)
+            err_max, rows_max = max(err_max, rec["max_abs_err"]), max(rows_max, rec["rows_differ"])
+            log(f"K3 {form} {rec['shape']}: {rec['rows_differ']} rows + columns differ "
+                f"(near ties); kernel {rec['ms']:.4f} ms {rec['kernel_runs']}, plain "
+                f"{rec['plain_ms']:.4f} ms, {library} {rec['library_ms']:.4f} ms "
+                f"{rec['library_runs']}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+                f"fp32 CUDA cores {rec['bound_fp32_ms']:.4f} ms)")
+        forms[form] = _form_record(form, shapes, err_max, rows_max, library)
+    return _match_entry("match_argmin_bidirectional (K3)", "match_bidir.cu",
+                        "pallas_match.py:147", forms)
 
 
 def _in_window(torch, name, idx, n, m, halo):
@@ -475,7 +565,8 @@ def expected_launches(cfg):
 
 def drive_path(torch, dev, name: str, batch: int, model_cache: dict):
     """device_batch -> forward_align at full width along one path; returns
-    the launch counts of that one driven batch and the time per pair."""
+    the launch counts of that one driven batch (all, and the match kernels'
+    bf16-form ones) and the path's record."""
     from deepsir_tpu_torch.config import ModelConfig
     from deepsir_tpu_torch.models.network import ForwardOptions
     from deepsir_tpu_torch.training import device_batch
@@ -499,13 +590,14 @@ def drive_path(torch, dev, name: str, batch: int, model_cache: dict):
 
     arrays = make_arrays(rng, batch, morton)
     counted = kernels()
-    for fn in counted.values():
-        fn.launches = 0
+    reset_counts(counted)
     out = run(arrays)
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counted.items()}
+    launches, launches_lp = read_counts(counted)
     if launches != want:
         raise AssertionError(f"{name} B={batch}: launches {launches}, expected {want}")
+    if any(launches_lp.values()):                     # the paths compute in fp32
+        raise AssertionError(f"{name} B={batch}: bf16-form launches {launches_lp}")
     t = out.transforms
     if tuple(t.shape) != (N_ITERS, batch, 3, 4) or not bool(torch.isfinite(t).all()):
         raise AssertionError(f"{name} B={batch}: transforms {tuple(t.shape)} not finite")
@@ -523,8 +615,9 @@ def drive_path(torch, dev, name: str, batch: int, model_cache: dict):
     log(f"path {name} B={batch}: {per_pair * 1e3:.3f} ms per pair ({1.0 / per_pair:.3f} "
         f"pairs/s), invalid={out.invalid.tolist()}, launches {launches}, "
         f"rotation orthonormality err {orth:.2e}")
-    return launches, {"path": name, "batch": batch, "ms_per_pair": per_pair * 1e3,
-                      "launches": launches, "options": options}
+    return launches, launches_lp, {"path": name, "batch": batch,
+                                   "ms_per_pair": per_pair * 1e3, "launches": launches,
+                                   "launches_bf16": launches_lp, "options": options}
 
 
 def _pyramid_near_ties(torch, what, got, want, query, cand):
@@ -565,8 +658,7 @@ def check_fixture(torch, dev, path: Path):
     model = load_network(cfg, sd, device=dev)
     arrays = {k: fx[k] for k in ("points_src", "points_ref", "transform_gt")}
     counted = kernels()
-    for fn in counted.values():
-        fn.launches = 0
+    reset_counts(counted)
     batch = device_batch(cfg, arrays, device=dev)
     n_ties = 0
     for side, pyr in (("src", batch.pyramid_src), ("ref", batch.pyramid_ref)):
@@ -581,7 +673,7 @@ def check_fixture(torch, dev, path: Path):
     out = model.forward_align(batch, ForwardOptions(num_iter=cfg.num_reg_iter,
                                                     clip_weight=True))
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counted.items()}
+    launches, _ = read_counts(counted)
     if launches != expected_launches(cfg):
         raise AssertionError(f"fixture {path.name}: launches {launches}, "
                              f"expected {expected_launches(cfg)}")
@@ -630,17 +722,22 @@ def main() -> int:
         k3 = check_bidir(torch, dev, gen)
     with phase("K4 knn_topk_windowed vs plain"):
         k4 = check_windowed(torch, dev, gen)
-    total = dict.fromkeys(COUNTED, 0)
+    total, total_lp = dict.fromkeys(COUNTED, 0), dict.fromkeys(LP_COUNTED, 0)
     paths, models = [], {}
     for name, batch in RUNS:
         with phase(f"path {name} B={batch}"):
-            launches, record = drive_path(torch, dev, name, batch, models)
+            launches, launches_lp, record = drive_path(torch, dev, name, batch, models)
             paths.append(record)
             for key, n in launches.items():
                 total[key] += n
+            for key, n in launches_lp.items():
+                total_lp[key] += n
     models.clear()
     for entry, key in zip((k1, k4, k2, k3), COUNTED):
         entry["launches"] = total[key]
+    for entry, key in zip((k2, k3), LP_COUNTED):
+        entry["forms"]["bf16"]["launches"] = total_lp[key]
+        entry["forms"]["fp32x3"]["launches"] = total[key] - total_lp[key]
     for path in FIXTURES:
         with phase(f"JAX fixture parity {path.name}"):
             check_fixture(torch, dev, path)

@@ -7,9 +7,14 @@ K3, `csrc/match_bidir.cu`, replaces
 deepsir_tpu/ops/pallas_match.py::match_argmin_bidirectional: K2's result and,
 in the same pass, for every ref row the src row minimising the full distance
 (|r|^2 - 2 s.r) + |s|^2, ties to the lowest index.
-The kernels run fp32 FMAs on the CUDA cores; kernel and plain version sum the
-dot products in different orders, so they may pick different rows only where
-two distances are within float rounding of each other.
+Both kernels share the tensor-core core `csrc/match_core.cuh`, in two forms:
+fp32-grade products (three TF32 products per step, 3xTF32) by default, and
+with `low_precision` bf16 operands with fp32 accumulation, as the TPU
+kernels' `low_precision`. The plain versions of the bf16 form round src and
+ref to bf16 and run the fp32 search, with the norms from the fp32 inputs.
+Kernel and plain version sum the dot products in different orders, so they
+may pick different rows only where two distances are within float rounding
+of each other.
 """
 from __future__ import annotations
 
@@ -23,15 +28,24 @@ MAX_CHANNELS = 128
 _CHUNK_ELEMS = 1 << 24          # distance-tile budget of the plain version
 
 
-def match_argmin_plain(src: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even) and back."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def match_argmin_plain(src: torch.Tensor, ref: torch.Tensor,
+                       low_precision: bool = False) -> torch.Tensor:
     """(B, N, C) x (B, M, C) -> (B, N) int64 nearest ref row under squared L2.
 
     Chunked `ref_sq - 2 src @ ref^T` then `argmin`, which returns the first
-    minimum.
+    minimum. `low_precision`: src and ref rounded to bf16 for the products,
+    ref_sq from the fp32 inputs (pallas_match.py:231-238).
     """
     b, n, _ = src.shape
     m = ref.shape[1]
     ref_sq = torch.sum(ref * ref, dim=-1)                      # (B, M)
+    if low_precision:
+        src, ref = _bf16(src), _bf16(ref)
     ref_t = ref.transpose(1, 2)
     chunk = max(1, _CHUNK_ELEMS // max(1, b * m))
     parts = []
@@ -41,17 +55,22 @@ def match_argmin_plain(src: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return torch.cat(parts, dim=1)
 
 
-def match_argmin_bidirectional_plain(src: torch.Tensor, ref: torch.Tensor):
+def match_argmin_bidirectional_plain(src: torch.Tensor, ref: torch.Tensor,
+                                     low_precision: bool = False):
     """(B, N, C) x (B, M, C) -> (idx (B, N), ridx (B, M)) int64.
 
     Chunked over src rows as `match_argmin_plain`; each chunk's column
     minima of `ref_sq - 2 src @ ref^T + src_sq` replace the running ones only
     where strictly smaller, so ties go to the lowest src row.
+    `low_precision`: src and ref rounded to bf16 for the products, the norms
+    from the fp32 inputs (pallas_match.py:167-175).
     """
     b, n, _ = src.shape
     m = ref.shape[1]
     ref_sq = torch.sum(ref * ref, dim=-1)                      # (B, M)
     src_sq = torch.sum(src * src, dim=-1)                      # (B, N)
+    if low_precision:
+        src, ref = _bf16(src), _bf16(ref)
     ref_t = ref.transpose(1, 2)
     chunk = max(1, _CHUNK_ELEMS // max(1, b * m))
     parts = []
@@ -95,7 +114,7 @@ def _lib():
     lib = _build.load("match_argmin")
     fn = lib.match_argmin_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -105,13 +124,14 @@ def match_argmin(src: torch.Tensor, ref: torch.Tensor,
     """(B, N, C) x (B, M, C) -> (B, N) int64 nearest ref row under squared L2.
 
     CUDA tensors launch the kernel; CPU tensors take `match_argmin_plain`.
-    Requires C <= 128. `low_precision` (bf16 operands) is not ported.
+    Requires C <= 128. `low_precision` takes bf16 operands, fp32-grade
+    products otherwise. One call counts one launch in `.launches`, and also
+    in `.launches_lp` when it takes bf16 operands, though the kernel's
+    launcher issues three device operations.
     """
     _check_pair(src, ref, "match_argmin")
-    if low_precision:
-        raise NotImplementedError("match_argmin low_precision (bf16 operands)")
     if src.device.type == "cpu" and ref.device.type == "cpu":
-        return match_argmin_plain(src, ref)
+        return match_argmin_plain(src, ref, low_precision)
     _check_cuda(src, ref)
     b, n, c = src.shape
     m = ref.shape[1]
@@ -121,20 +141,21 @@ def match_argmin(src: torch.Tensor, ref: torch.Tensor,
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(src.data_ptr(), ref.data_ptr(), ref_sq.data_ptr(),
-                    out.data_ptr(), b, n, m, c, stream)
+                    out.data_ptr(), b, n, m, c, int(low_precision), stream)
     _build.check(status, "match_argmin_launch")
     match_argmin.launches += 1
+    match_argmin.launches_lp += int(low_precision)
     return out
 
 
-match_argmin.launches = 0
+match_argmin.launches = match_argmin.launches_lp = 0
 
 
 def _lib_bidir():
     lib = _build.load("match_bidir")
     fn = lib.match_bidir_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -146,15 +167,13 @@ def match_argmin_bidirectional(src: torch.Tensor, ref: torch.Tensor,
 
     CUDA tensors launch the kernel; CPU tensors take
     `match_argmin_bidirectional_plain`. Requires C <= 128. `low_precision`
-    (bf16 operands) is not ported. One call counts one launch, though the
-    kernel's launcher issues three device operations.
+    takes bf16 operands, fp32-grade products otherwise. One call counts one
+    launch in `.launches`, and also in `.launches_lp` when it takes bf16
+    operands, though the kernel's launcher issues four device operations.
     """
     _check_pair(src, ref, "match_argmin_bidirectional")
-    if low_precision:
-        raise NotImplementedError(
-            "match_argmin_bidirectional low_precision (bf16 operands)")
     if src.device.type == "cpu" and ref.device.type == "cpu":
-        return match_argmin_bidirectional_plain(src, ref)
+        return match_argmin_bidirectional_plain(src, ref, low_precision)
     _check_cuda(src, ref)
     b, n, c = src.shape
     m = ref.shape[1]
@@ -167,10 +186,11 @@ def match_argmin_bidirectional(src: torch.Tensor, ref: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(src.data_ptr(), ref.data_ptr(), src_sq.data_ptr(),
                     ref_sq.data_ptr(), idx.data_ptr(), ridx.data_ptr(),
-                    b, n, m, c, stream)
+                    b, n, m, c, int(low_precision), stream)
     _build.check(status, "match_bidir_launch")
     match_argmin_bidirectional.launches += 1
+    match_argmin_bidirectional.launches_lp += int(low_precision)
     return idx, ridx
 
 
-match_argmin_bidirectional.launches = 0
+match_argmin_bidirectional.launches = match_argmin_bidirectional.launches_lp = 0

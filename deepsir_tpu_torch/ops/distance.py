@@ -26,12 +26,14 @@ def nearest_neighbour_index(feat_src: torch.Tensor, feat_ref: torch.Tensor,
 
 
 @torch.no_grad()
-def nearest_neighbour_bidirectional(feat_src: torch.Tensor, feat_ref: torch.Tensor):
+def nearest_neighbour_bidirectional(feat_src: torch.Tensor, feat_ref: torch.Tensor,
+                                    low_precision: bool = False):
     """Both directions of the search in one pass: feat_src (B, N, C),
     feat_ref (B, M, C) -> (idx (B, N), ridx (B, M)) int64, where idx[i] is
     the nearest ref row of src row i and ridx[j] the nearest src row of ref
-    row j."""
-    return match_argmin_bidirectional(feat_src.contiguous(), feat_ref.contiguous())
+    row j. `low_precision` takes bf16 operands for the products."""
+    return match_argmin_bidirectional(feat_src.contiguous(), feat_ref.contiguous(),
+                                      low_precision=low_precision)
 
 
 def mutual_gate(idx: torch.Tensor, reverse_idx: torch.Tensor, min_keep: int = 3,

@@ -146,8 +146,8 @@ def test_mutual_gate_min_keep_fallback(rng):
 
 
 def test_wrapper_rejects_unsupported():
-    with pytest.raises(NotImplementedError, match="low_precision"):
-        match_argmin_bidirectional(torch.zeros(1, 4, 8), torch.zeros(1, 4, 8),
+    with pytest.raises(ValueError):
+        match_argmin_bidirectional(torch.zeros(1, 4, 129), torch.zeros(1, 4, 129),
                                    low_precision=True)
     with pytest.raises(ValueError):
         match_argmin_bidirectional(torch.zeros(1, 4, 129), torch.zeros(1, 4, 129))

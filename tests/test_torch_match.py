@@ -68,7 +68,7 @@ def test_batched_and_wrapper(rng):
 
 
 def test_wrapper_rejects_unsupported():
-    with pytest.raises(NotImplementedError, match="low_precision"):
-        match_argmin(torch.zeros(1, 4, 8), torch.zeros(1, 4, 8), low_precision=True)
+    with pytest.raises(ValueError):
+        match_argmin(torch.zeros(1, 4, 8), torch.zeros(2, 4, 8), low_precision=True)
     with pytest.raises(ValueError):
         match_argmin(torch.zeros(1, 4, 129), torch.zeros(1, 4, 129))
