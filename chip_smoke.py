@@ -4,9 +4,11 @@
 
 Builds the port's CUDA kernels from csrc/ with nvcc, holds each kernel
 against its plain PyTorch version at the shapes of the align forward and
-times it (the match kernels K2 and K3 in both operand forms: fp32-grade
-3xTF32, which the paths run, and bf16 `low_precision`, each timed in turns
-with a PyTorch yardstick), drives the align inference forward (`device_batch` ->
+times it (the KNN kernels K1 and K4 also on exact lattice ties and few-query
+searches, and timed with their yardsticks by CUDA-graph replay in turns; the
+match kernels K2 and K3 in both operand forms: fp32-grade 3xTF32, which the
+paths run, and bf16 `low_precision`, each timed in turns with a PyTorch
+yardstick), drives the align inference forward (`device_batch` ->
 `Network.forward_align`) at full width (18000 points, 5 iterations) with
 seeded random weights along four paths:
 - default: the default configuration (kernels K1, K2), batch 1 and 2;
@@ -95,6 +97,52 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _graph(fn, reps: int):
+    """A CUDA graph of `reps` calls of fn(), captured after a warm-up call on
+    a side stream (which also fills every cache the call keeps)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
+def _replay_ms(graph, reps: int, replays: int = 3) -> float:
+    """Mean device time of one call in `replays` replays of a graph of `reps`
+    calls: the calls run back to back on the device, with no host launch
+    between them."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def _graph_in_turns(kernel, library, reps: int, library_reps: int):
+    """Kernel and yardstick, each captured once into a CUDA graph, replayed in
+    turns (kernel, library, library, kernel); returns (kernel ms, library ms,
+    every run)."""
+    gk, gl = _graph(kernel, reps), _graph(library, library_reps)
+    k1, l1 = _replay_ms(gk, reps), _replay_ms(gl, library_reps)
+    l2, k2 = _replay_ms(gl, library_reps), _replay_ms(gk, reps)
+    return (k1 + k2) / 2, (l1 + l2) / 2, {"kernel_runs": [k1, k2], "library_runs": [l1, l2],
+                                          "timing": f"CUDA graph replay, {reps} kernel and "
+                                                    f"{library_reps} yardstick calls a graph"}
+
+
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
     """(least time in ms, what bounds it) at the published peaks."""
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
@@ -163,6 +211,13 @@ def _timed_shape(name, q, r, k, ms, plain_ms, library_ms, pairs):
             "bound_ms": bms, "bound_by": by}
 
 
+def _lattice(torch, gen, dev, b, n, d):
+    """Points with integer coordinates in a small grid (6 per axis in 3-D,
+    3 per axis in 8-D): every distance is an integer, so many refs tie."""
+    cells = 6 if d == 3 else 3
+    return torch.randint(0, cells, (b, n, d), generator=gen).float().to(dev)
+
+
 def check_knn(torch, dev, gen):
     """K1 against knn_topk_plain on the card at every shape the paths launch;
     returns the kernels-line entry."""
@@ -183,6 +238,23 @@ def check_knn(torch, dev, gen):
     log("K1 agrees with its plain version at k in {3, 4, 7, 32}, D in {3, 5, 8}, "
         "ragged sizes and duplicate points")
 
+    # exact ties and the split sweep: a lattice (integer coordinates, so many
+    # refs lie at exactly the k-th distance, across lanes and split warps),
+    # and N = 1, 31 and 100 queries against 18000 refs (few queries: the
+    # block's warps split the sweep), at k 1, 16, 32, D 3 and 8, B = 2
+    for d in (3, 8):
+        lat = _lattice(torch, gen, dev, 2, N_POINTS, d)
+        big = rand(2, N_POINTS, d)
+        few = [(f"lattice self D={d}", lat, lat),
+               (f"lattice N=31 D={d}", lat[:, :31].contiguous(), lat)]
+        few += [(f"N={nq} D={d}", rand(2, nq, d), big) for nq in (1, 31, 100)]
+        for k in (1, 16, 32):
+            for name, q, r in few:
+                _knn_agree(torch, f"{name} k={k} B=2", knn_topk(q, r, k), knn_topk_plain(q, r, k))
+    log(f"K1 agrees with its plain version on a lattice (exact ties at the k-th "
+        f"distance) and at N in {{1, 31, 100}} against {N_POINTS} refs, k in {{1, 16, 32}}, "
+        f"D in {{3, 8}}, B=2")
+
     # the pyramid's searches: per level a k=16 self-search and a k=1 search
     # into the next level, at batch 1 and 2
     pts = torch.randn(2, N_POINTS, 3, generator=gen).mul_(10.0).to(dev)
@@ -197,27 +269,31 @@ def check_knn(torch, dev, gen):
     for name, q, r, k in cases:
         _, err = _knn_agree(torch, name, knn_topk(q, r, k), knn_topk_plain(q, r, k))
         err_max = max(err_max, err)
-        ms = cuda_ms(lambda: knn_topk(q, r, k), 5)
+        event_ms = cuda_ms(lambda: knn_topk(q, r, k), 5)
         plain_ms = cuda_ms(lambda: knn_topk_plain(q, r, k), 2)
 
         def library():
             for s in range(0, q.shape[1], 2048):
                 torch.topk(torch.cdist(q[:, s:s + 2048], r), k, dim=-1, largest=False)
-        library_ms = cuda_ms(library, 2)
+        ms, library_ms, runs = _graph_in_turns(lambda: knn_topk(q, r, k), library, 50, 2)
         rec = _timed_shape(name, q, r, k, ms, plain_ms, library_ms,
                            q.shape[0] * q.shape[1] * r.shape[1])
+        rec.update(runs, event_ms=event_ms)
         shapes.append(rec)
         log(f"K1 {name}: {rec['shape']}: indices equal, max dist diff 0; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cdist+topk {library_ms:.4f} ms, "
-            f"bound {rec['bound_ms']:.3g} ms ({rec['bound_by']})")
+            f"{ms:.4f} ms {runs['kernel_runs']} (graph; events {event_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, cdist+topk {library_ms:.4f} ms {runs['library_runs']} "
+            f"(graph), bound {rec['bound_ms']:.3g} ms ({rec['bound_by']})")
     main = shapes[0]                                  # level-0 self-search, B=1
     return {"name": "knn_topk (K1)", "route": "cuda",
             "source": "deepsir_tpu_torch/csrc/knn_topk.cu",
             "replaces": "deepsir_tpu/ops/pallas_knn.py:130",
+            "core": "deepsir_tpu_torch/csrc/knn_select.cuh",
             "shape": main["shape"], "max_abs_err": err_max, "index_mismatches": 0,
-            "ms": main["ms"], "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"], "shapes": shapes}
+            "ms": main["ms"], "kernel_ms": main["ms"], "event_ms": main["event_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "timing": main["timing"], "shapes": shapes}
 
 
 def _near_ties(torch, what, a, b, qry, cand, idx, pidx, low_precision=False):
@@ -504,6 +580,15 @@ def check_windowed(torch, dev, gen):
         _in_window(torch, name, idx, q.shape[1], r.shape[1], halo)
     log("K4 agrees with its plain version (indices equal, distances bit-equal) at "
         "ragged N, D in {3, 8}, k in {4, 8, 32}, and every index lies in its window")
+    # exact ties: a curve-sorted lattice at k 1, 16, 32, D 3 and 8, B = 2
+    for d in (3, 8):
+        lat = _lattice(torch, gen, "cpu", 2, N_POINTS, d).numpy()
+        lat = torch.from_numpy(sort_clouds(lat)).contiguous().to(dev)
+        for k in (1, 16, 32):
+            (idx, _), _ = check(f"lattice D={d} k={k} B=2", lat, lat, k)
+            _in_window(torch, f"lattice D={d} k={k}", idx, N_POINTS, N_POINTS, halo)
+    log("K4 agrees with its plain version on a curve-sorted lattice (exact ties at "
+        "the k-th distance), k in {1, 16, 32}, D in {3, 8}, B=2")
 
     shapes, err_max = [], 0.0
     for name, q, r, k in cases:
@@ -511,7 +596,7 @@ def check_windowed(torch, dev, gen):
         err_max = max(err_max, err)
         n, m = q.shape[1], r.shape[1]
         rows, starts = _in_window(torch, name, idx, n, m, halo)
-        ms = cuda_ms(lambda: knn_topk_windowed(q, r, k, halo), 10)
+        event_ms = cuda_ms(lambda: knn_topk_windowed(q, r, k, halo), 10)
         plain_ms = cuda_ms(lambda: knn_topk_windowed_plain(q, r, k, halo), 3)
         # the same windows gathered, one batched cdist and one topk
         b, _, d = q.shape
@@ -524,24 +609,28 @@ def check_windowed(torch, dev, gen):
             win = r[:, col.clamp(max=m - 1)].reshape(b * t, rows, d)
             dm = torch.cdist(qt, win) + pad.repeat(b, 1)[:, None, :]
             torch.topk(dm, k, dim=-1, largest=False)
-        library_ms = cuda_ms(library, 10)
+        ms, library_ms, runs = _graph_in_turns(
+            lambda: knn_topk_windowed(q, r, k, halo), library, 50, 10)
         pairs = b * sum(min(TQ, n - i * TQ) * (min(m, s + rows) - s)
                         for i, s in enumerate(starts))
         rec = _timed_shape(name, q, r, k, ms, plain_ms, library_ms, pairs)
-        rec["window_rows"] = rows
+        rec.update(runs, event_ms=event_ms, window_rows=rows)
         shapes.append(rec)
         log(f"K4 {name}: {rec['shape']}, window {rows} rows: indices equal, max dist "
-            f"diff 0, all in window; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"gather+cdist+topk {library_ms:.4f} ms, bound {rec['bound_ms']:.3g} ms "
-            f"({rec['bound_by']})")
+            f"diff 0, all in window; kernel {ms:.4f} ms {runs['kernel_runs']} (graph; "
+            f"events {event_ms:.4f} ms), plain {plain_ms:.4f} ms, gather+cdist+topk "
+            f"{library_ms:.4f} ms {runs['library_runs']} (graph), bound "
+            f"{rec['bound_ms']:.3g} ms ({rec['bound_by']})")
     main = shapes[0]
     return {"name": "knn_topk_windowed (K4)", "route": "cuda",
             "source": "deepsir_tpu_torch/csrc/knn_windowed.cu",
             "replaces": "deepsir_tpu/ops/pallas_knn.py:238",
+            "core": "deepsir_tpu_torch/csrc/knn_select.cuh",
             "shape": main["shape"], "max_abs_err": err_max, "index_mismatches": 0,
-            "ms": main["ms"], "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"], "shapes": shapes}
+            "ms": main["ms"], "kernel_ms": main["ms"], "event_ms": main["event_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "timing": main["timing"], "shapes": shapes}
 
 
 def expected_launches(cfg):

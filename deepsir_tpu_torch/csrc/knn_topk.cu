@@ -7,22 +7,25 @@
 // no bucketed partial reduce and no quantised distance keys.
 //
 // What bounds it on the H100: arithmetic. The pyramid's level-0 self-search
-// at 18000 points is 3.24e8 pair distances (3 sub + 3 mul + 2 add each) plus
-// a compare, against 18000 * 3 * 4 bytes of input: the data fit in L2 many
-// times over, so bytes are nothing and the CUDA cores' fp32 issue rate is
-// the limit. What the design does about it: every query coordinate lives in
-// registers, ref tiles are staged once per block in shared memory (one load
-// serves 32 queries), and each query is split over 4 threads that scan
-// interleaved ref columns, so 18000 queries give 72000 threads (~560 blocks
-// over 132 SMs) instead of one thin wave. The search itself, its sorted
-// register lists and its tie rule are in knn_select.cuh, shared with K4; its
+// at 18000 points is 3.24e8 pair distances (3 sub + 3 mul + 2 add each)
+// against 18000 * 3 * 4 bytes of input: the data fit in L2 many times over,
+// so bytes are nothing and the CUDA cores' fp32 issue rate is the limit;
+// the bit-exact rule forbids FMA contraction, so with the rejection test
+// about 9 issued instructions per pair are the floor. What the design does
+// about it (knn_select.cuh, shared with K4): a warp carries 4 queries in
+// registers, so one 16-byte shared-memory load of a ref serves 4 pair
+// distances; the lanes of a warp share one queue per query, whose k-th
+// entry has seen 32x the refs a per-lane list would, so almost every ref is
+// rejected by one compare and a warp-wide ballot, and the rare insertion is
+// warp-synchronous rather than a divergent per-lane path; a block's warps
+// split the ref sweep when the queries alone cannot fill the SMs. Its
 // distances are bit-identical to the plain PyTorch version
 // (deepsir_tpu_torch/ops/cuda_knn.py::knn_topk_plain): indices must be equal.
 #include "knn_select.cuh"
 
 // query (batch, n, d), ref (batch, m, d) f32 contiguous; writes idx and dist
-// (batch, n, k). Requires 1 <= k <= min(m, 32), 1 <= d <= 8. Returns the
-// launch's cudaGetLastError() value (0 on success).
+// (batch, n, k). Requires 1 <= k <= min(m, 32), 1 <= d <= 8. Returns a
+// CUDA error code (0 on success).
 extern "C" int knn_topk_launch(const float* query, const float* ref,
                                long long* idx, float* dist, int batch, int n,
                                int m, int d, int k, void* stream) {

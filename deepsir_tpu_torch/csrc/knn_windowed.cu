@@ -18,17 +18,21 @@
 // What bounds it on the H100: at the Morton pyramid's level-0 self-search
 // (18000 queries, a 1536-row window) it is 2.8e7 pair distances of 8 fp32
 // operations, 3.3 us at 67 TFLOP/s, against ~0.5 MB of input and output:
-// arithmetic, and at this size in practice the launch itself. What the design
-// does about it: one launch serves the whole batch (grid.y), a block's 32
-// queries share one window so each staged ref tile serves all of them, and
-// only the window's 3 x 512 rows are read.
+// arithmetic, but with only 1536 refs per query the selection (about
+// k + k ln(1536 / k) candidates per query) weighs as much as the distances.
+// What the design does about it: one launch serves the whole batch (grid.y);
+// a block's queries share one window, so each staged ref tile serves all of
+// them, and only the window's 3 x 512 rows are read; the sweep starts at the
+// window rows across from the block's queries, their nearest refs on a
+// curve-sorted cloud, so the warp-shared queue of knn_select.cuh starts with
+// a tight threshold and admits few candidates after the first tile.
 #include "knn_select.cuh"
 
 // query (batch, n, d), ref (batch, m, d) f32 contiguous; win_start
 // (ceil(n / 128),) int32 first ref row of each query tile's window, which is
 // [win_start[t], min(m, win_start[t] + win_rows)); writes idx and dist
 // (batch, n, k). Requires 1 <= k <= 32, k refs in every window, 1 <= d <= 8.
-// Returns the launch's cudaGetLastError() value (0 on success).
+// Returns a CUDA error code (0 on success).
 extern "C" int knn_windowed_launch(const float* query, const float* ref,
                                    const int* win_start, int win_rows,
                                    long long* idx, float* dist, int batch,
