@@ -10,18 +10,29 @@ match kernels K2 and K3 in both operand forms: fp32-grade 3xTF32, which the
 paths run, and bf16 `low_precision`, each timed in turns with a PyTorch
 yardstick), drives the align inference forward (`device_batch` ->
 `Network.forward_align`) at full width (18000 points, 5 iterations) with
-seeded random weights along four paths:
+seeded random weights along seven paths:
 - default: the default configuration (kernels K1, K2), batch 1 and 2;
 - F: the round-4 flagship, `dist,recip` inlier channels (K1, K3), batch 1, 2;
 - F+gate: F with the relaxed mutual gate (K1, K3), batch 1;
 - M: the Morton pyramid, curve-sorted clouds and windowed KNN (K1, K4, K2),
   batch 1 and 2;
-and holds the port against the JAX package's outputs stored in
-tests/data/torch_parity_small.npz and tests/data/torch_parity_paths.npz.
-Imports neither JAX nor the JAX package.
+- D: the deploy config, 8 inlier and backbone neighbours and a 2-level
+  inlier net (K1, K2), batch 1 and 2;
+- flag: the `align_flag` run's config.json read by `from_run_config` (K1,
+  K3), batch 1;
+- R: the default configuration with `refine_stride=4`, a second pyramid
+  over the source subset inside the forward (K1, K2), batch 1;
+holds the port against the JAX package's outputs stored in
+tests/data/torch_parity_small.npz and tests/data/torch_parity_paths.npz;
+and runs trained weights: the staged align checkpoint, read by the port's
+own msgpack decoder, on the synthetic pairs of
+tests/data/torch_parity_ckpt.npz, against JAX's outputs at 1024 points and
+against the same forward with every kernel replaced by its plain version at
+18000 points. Imports neither JAX nor the JAX package.
 
 Output: one line per phase with its wall time; then a JSON line
-{"paths": [...]}, a JSON line {"kernels": [...]}, the card's name and power
+{"paths": [...]}, a JSON line {"checkpoint": {...}}, a JSON line
+{"kernels": [...]}, the card's name and power
 limit as nvidia-smi reports them, and last {"ok": true, "device": {...}}.
 Any failure raises: the exit code is not 0 and the last line is not
 printed. Needs one CUDA card.
@@ -40,6 +51,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 FIXTURES = (ROOT / "tests" / "data" / "torch_parity_small.npz",
             ROOT / "tests" / "data" / "torch_parity_paths.npz")
+CKPT_FIXTURE = ROOT / "tests" / "data" / "torch_parity_ckpt.npz"
+CKPT_RUN = ROOT / "logs_r3" / "staged_po" / "260817_191109_align"
+FLAG_RUN = ROOT / "logs_r4" / "260819_171529_align_flag"
 
 N_POINTS = 18000          # bench.py's protocol
 N_ITERS = 5
@@ -57,15 +71,20 @@ PEAK_BYTES = 3.35e12
 FORMS = {"fp32x3": (False, 3, PEAK_TF32_FLOPS), "bf16": (True, 1, PEAK_BF16_FLOPS)}
 
 FLAGSHIP = dict(inlier_extra_feats="dist,recip", clip_weight_thresh=0.05)
-# path -> (ModelConfig options, launches per batch of K1, K4, K2, K3)
+DEPLOY = dict(inlier_num_knn=8, inlier_num_layers=2, backbone_num_knn=8)   # README
+# path -> (ModelConfig options, or the run whose config.json gives them;
+# ForwardOptions.refine_stride; launches per batch of K1, K4, K2, K3)
 PATHS = {
-    "default": ({}, (16, 0, 5, 0)),
-    "F": (FLAGSHIP, (16, 0, 0, 5)),
-    "F+gate": (dict(FLAGSHIP, mutual_check=True, mutual_check_tol=0.6), (16, 0, 0, 5)),
-    "M": (dict(pyramid_order="morton", knn_window_halo=1), (10, 6, 5, 0)),
+    "default": ({}, 1, (16, 0, 5, 0)),
+    "F": (FLAGSHIP, 1, (16, 0, 0, 5)),
+    "F+gate": (dict(FLAGSHIP, mutual_check=True, mutual_check_tol=0.6), 1, (16, 0, 0, 5)),
+    "M": (dict(pyramid_order="morton", knn_window_halo=1), 1, (10, 6, 5, 0)),
+    "D": (DEPLOY, 1, (16, 0, 5, 0)),
+    "flag": (FLAG_RUN, 1, (16, 0, 0, 5)),
+    "R": ({}, 4, (24, 0, 5, 0)),
 }
 RUNS = (("default", 1), ("default", 2), ("F", 1), ("F", 2), ("F+gate", 1),
-        ("M", 1), ("M", 2))
+        ("M", 1), ("M", 2), ("D", 1), ("D", 2), ("flag", 1), ("R", 1))
 COUNTED = ("knn_topk", "knn_topk_windowed", "match_argmin", "match_argmin_bidirectional")
 LP_COUNTED = COUNTED[2:]          # these also count their bf16-form launches
 
@@ -170,17 +189,17 @@ def read_counts(counted):
             {k: counted[k].launches_lp for k in LP_COUNTED})
 
 
-def make_arrays(rng, batch: int, morton: bool = False):
+def make_arrays(rng, batch: int, morton: bool = False, feat_len: int = FEAT_LEN):
     """Random pair clouds as bench.py's make_arrays makes them (bench.py:116-133),
     curve-sorted on the host under Morton order."""
     from deepsir_tpu_torch.ops.morton import sort_clouds
     n = N_POINTS
     xyz = rng.normal(size=(batch, n, 3)).astype(np.float32) * 10.0
-    extra = rng.uniform(size=(batch, n, 1)).astype(np.float32)
+    extra = rng.uniform(size=(batch, n, feat_len - 3)).astype(np.float32)
     pts = np.concatenate([xyz, extra], axis=-1)
     xyz2 = rng.normal(size=(batch, n, 3)).astype(np.float32) * 10.0
     pts2 = np.concatenate(
-        [xyz2, rng.uniform(size=(batch, n, 1)).astype(np.float32)], axis=-1)
+        [xyz2, rng.uniform(size=(batch, n, feat_len - 3)).astype(np.float32)], axis=-1)
     if morton:
         pts, pts2 = sort_clouds(pts), sort_clouds(pts2)
     return {"points_src": pts, "points_ref": pts2,
@@ -633,51 +652,68 @@ def check_windowed(torch, dev, gen):
             "timing": main["timing"], "shapes": shapes}
 
 
-def expected_launches(cfg):
-    """Launches per batch of each kernel, from the port's window geometry."""
-    from deepsir_tpu_torch.config import inlier_extras
+def _pyramid_searches(cfg, n: int):
+    """(full, windowed) KNN searches of one cloud's pyramid over n points."""
     from deepsir_tpu_torch.ops.window import windowed
     halo = cfg.knn_window_halo if cfg.pyramid_order == "morton" else 0
     full = win = 0
-    n = cfg.num_points
     for r in cfg.sub_sampling_ratio:
         for nv in (n, n // r):                        # self-search, upsample
             if halo and windowed(n, nv, halo):
-                win += 2                              # both clouds
+                win += 1
             else:
-                full += 2
+                full += 1
         n //= r
+    return full, win
+
+
+def expected_launches(cfg, refine_stride: int = 1):
+    """Launches per batch of each kernel, from the port's window geometry:
+    both clouds' pyramids, and with refine_stride > 1 the source subset's."""
+    from deepsir_tpu_torch.config import inlier_extras
+    full, win = (2 * c for c in _pyramid_searches(cfg, cfg.num_points))
+    if refine_stride > 1 and cfg.num_reg_iter > 1:
+        sub = _pyramid_searches(cfg, len(range(0, cfg.num_points, refine_stride)))
+        full, win = full + sub[0], win + sub[1]
     both = cfg.mutual_check or "recip" in inlier_extras(cfg)
     return dict(zip(COUNTED, (full, win, 0 if both else cfg.num_reg_iter,
                               cfg.num_reg_iter if both else 0)))
+
+
+def path_config(name: str):
+    """A path's ModelConfig at full width (N_POINTS points)."""
+    from deepsir_tpu_torch.config import ModelConfig, from_run_config, replace
+    options = PATHS[name][0]
+    if isinstance(options, Path):                     # the params do not depend on N
+        return replace(from_run_config(options), num_points=N_POINTS)
+    return ModelConfig(feat_len=FEAT_LEN, num_points=N_POINTS, num_reg_iter=N_ITERS,
+                       **options)
 
 
 def drive_path(torch, dev, name: str, batch: int, model_cache: dict):
     """device_batch -> forward_align at full width along one path; returns
     the launch counts of that one driven batch (all, and the match kernels'
     bf16-form ones) and the path's record."""
-    from deepsir_tpu_torch.config import ModelConfig
     from deepsir_tpu_torch.models.network import ForwardOptions
     from deepsir_tpu_torch.training import device_batch
     from deepsir_tpu_torch.utils.params import init_params, load_network
 
-    options, per_batch = PATHS[name]
-    cfg = ModelConfig(feat_len=FEAT_LEN, num_points=N_POINTS, num_reg_iter=N_ITERS,
-                      **options)
-    want = expected_launches(cfg)
+    _, stride, per_batch = PATHS[name]
+    cfg = path_config(name)
+    want = expected_launches(cfg, stride)
     if tuple(want.values()) != per_batch:
         raise AssertionError(f"{name}: window geometry gives {want}, expected {per_batch}")
     if name not in model_cache:
         model_cache[name] = load_network(cfg, init_params(cfg, seed=0), device=dev)
     model = model_cache[name]
-    opts = ForwardOptions(num_iter=N_ITERS, clip_weight=True)
+    opts = ForwardOptions(num_iter=cfg.num_reg_iter, clip_weight=True, refine_stride=stride)
     morton = cfg.pyramid_order == "morton"
     rng = np.random.default_rng(0)
 
     def run(arrays):
         return model.forward_align(device_batch(cfg, arrays, device=dev), opts)
 
-    arrays = make_arrays(rng, batch, morton)
+    arrays = make_arrays(rng, batch, morton, cfg.feat_len)
     counted = kernels()
     reset_counts(counted)
     out = run(arrays)
@@ -688,13 +724,16 @@ def drive_path(torch, dev, name: str, batch: int, model_cache: dict):
     if any(launches_lp.values()):                     # the paths compute in fp32
         raise AssertionError(f"{name} B={batch}: bf16-form launches {launches_lp}")
     t = out.transforms
-    if tuple(t.shape) != (N_ITERS, batch, 3, 4) or not bool(torch.isfinite(t).all()):
+    rows = len(range(0, N_POINTS, stride))
+    if tuple(out.pred_idx.shape) != (cfg.num_reg_iter - (stride > 1), batch, rows):
+        raise AssertionError(f"{name} B={batch}: pred_idx {tuple(out.pred_idx.shape)}")
+    if tuple(t.shape) != (cfg.num_reg_iter, batch, 3, 4) or not bool(torch.isfinite(t).all()):
         raise AssertionError(f"{name} B={batch}: transforms {tuple(t.shape)} not finite")
     rot = t[-1, :, :, :3]
     orth = float((rot @ rot.transpose(-1, -2) - torch.eye(3, device=dev)).abs().max())
     if orth > 1e-3:
         raise AssertionError(f"{name} B={batch}: final rotation not orthonormal ({orth})")
-    feeds = [make_arrays(rng, batch, morton) for _ in range(TIMED_REPS)]
+    feeds = [make_arrays(rng, batch, morton, cfg.feat_len) for _ in range(TIMED_REPS)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for arrays in feeds:
@@ -704,7 +743,8 @@ def drive_path(torch, dev, name: str, batch: int, model_cache: dict):
     log(f"path {name} B={batch}: {per_pair * 1e3:.3f} ms per pair ({1.0 / per_pair:.3f} "
         f"pairs/s), invalid={out.invalid.tolist()}, launches {launches}, "
         f"rotation orthonormality err {orth:.2e}")
-    return launches, launches_lp, {"path": name, "batch": batch,
+    options = {k: v for k, v in vars(cfg).items() if v != getattr(type(cfg), k)}
+    return launches, launches_lp, {"path": name, "batch": batch, "refine_stride": stride,
                                    "ms_per_pair": per_pair * 1e3, "launches": launches,
                                    "launches_bf16": launches_lp, "options": options}
 
@@ -779,6 +819,215 @@ def check_fixture(torch, dev, path: Path):
         f"launches {launches}")
 
 
+# a pose solve whose weighted covariance has its smallest singular value below
+# this share of its largest is ill-conditioned: fp32 rounding alone then
+# moves its pose by up to ~1e-3 (tests/test_torch_checkpoint.py)
+ILL_CONDITIONED = 0.01
+
+
+def solve_conditioning(torch, out, xyz0, xyz_ref, cfg, mask=None):
+    """(iters, B) smallest over largest singular value of each iteration's
+    weighted covariance, in float64, from the forward's own matches, inlier
+    logits and poses (clip_weight on, no mutual gate)."""
+    from deepsir_tpu_torch.math import se3
+    if cfg.mutual_check:
+        raise NotImplementedError("solve_conditioning with the mutual gate")
+    x0, ref = xyz0.double(), xyz_ref.double()
+    ratios = []
+    for t in range(out.transforms.shape[0]):
+        pose = out.transforms[t - 1].double() if t and not cfg.absolute_pose_solve else None
+        src = x0 if pose is None else se3.transform(pose, x0)
+        w = torch.sigmoid(out.inlier_logits[t].double())
+        if cfg.clip_weight_thresh > 0:
+            w = torch.where(w < cfg.clip_weight_thresh, torch.zeros_like(w), w)
+        if mask is not None:
+            w = w * mask.double()
+        w = (w / w.sum(-1, keepdim=True))[..., None]
+        tgt = torch.gather(ref, 1, out.pred_idx[t][..., None].expand(-1, -1, 3))
+        src_c = src - (src * w).sum(1, keepdim=True)
+        tgt_c = tgt - (tgt * w).sum(1, keepdim=True)
+        s = torch.linalg.svdvals((src_c * w).transpose(1, 2) @ tgt_c)
+        ratios.append(s[:, 2] / s[:, 0])
+    return torch.stack(ratios)
+
+
+def held_iterations(pred_idx, want_idx, conditioning):
+    """Per pair, how many leading iterations are held to the reference: those
+    before the first whose matches differ from `want_idx` (a flipped match
+    changes the solve's input) or whose solve is ill-conditioned. Arrays
+    (iters, B, N) and (iters, B) -> (B,) numpy ints."""
+    bad = (np.asarray(pred_idx) != np.asarray(want_idx)).any(-1)
+    bad |= np.asarray(conditioning) < ILL_CONDITIONED
+    return np.where(bad.any(0), bad.argmax(0), bad.shape[0])
+
+
+def checkpoint_arrays(fx, n: int):
+    """The device_batch arrays of the checkpoint fixture's pairs at n points:
+    each cloud's raw rows tiled to n, as the data layer pads it, and its
+    validity mask."""
+    arrays = {"transform_gt": fx[f"n{n}_transform_gt"]}
+    for side in ("src", "ref"):
+        rows, raw = fx[f"n{n}_{side}_rows"], fx[f"n{n}_{side}_raw"]
+        arrays[f"points_{side}"] = np.stack([np.resize(r[:m], (n, r.shape[-1]))
+                                             for r, m in zip(rows, raw)])
+        arrays[f"mask_{side}"] = (np.arange(n)[None] < raw[:, None]).astype(np.float32)
+    return arrays
+
+
+@contextmanager
+def plain_kernels():
+    """Every kernel wrapper on the forward's path replaced by its plain
+    PyTorch version, which runs on the card's tensors too."""
+    from unittest import mock
+    from deepsir_tpu_torch.ops import cuda_knn, cuda_match, distance, knn
+    with mock.patch.object(knn, "knn_topk", cuda_knn.knn_topk_plain), \
+            mock.patch.object(knn, "knn_topk_windowed", cuda_knn.knn_topk_windowed_plain), \
+            mock.patch.object(distance, "match_argmin", cuda_match.match_argmin_plain), \
+            mock.patch.object(distance, "match_argmin_bidirectional",
+                              cuda_match.match_argmin_bidirectional_plain):
+        yield
+
+
+def _exact_pyramid_agrees(torch, what, pyr, ratios):
+    """The pyramid's indices against a float64 KNN (ties to the lower index)
+    of its own levels; returns the entries that differ (0 to pass)."""
+    def exact(q, r, k):
+        d = ((q.double()[:, :, None] - r.double()[:, None]) ** 2).sum(-1)
+        return torch.sort(d, dim=-1, stable=True)[1][..., :k]
+    n_bad = 0
+    for lvl, r in enumerate(ratios):
+        xyz = pyr.xyz[lvl]
+        k = pyr.neigh_idx[lvl].shape[-1]
+        n_bad += int((pyr.neigh_idx[lvl] != exact(xyz, xyz, k)).sum())
+        n_bad += int((pyr.interp_idx[lvl] != exact(xyz, xyz[:, :xyz.shape[1] // r], 1)[..., 0]).sum())
+    if n_bad:
+        raise AssertionError(f"checkpoint: {what} pyramid differs from the exact KNN "
+                             f"in {n_bad} entries")
+    return n_bad
+
+
+def _gate(what, out, want_idx, want_transforms, want_invalid, conditioning, tol=1e-3):
+    """PERF.md section 2's gates: iteration-1 correspondences >= 99.5% equal,
+    `invalid` equal, transforms within tol up to each pair's first iteration
+    whose matches differ or whose solve is ill-conditioned. Returns the
+    record of the comparison."""
+    pred = out.pred_idx.cpu().numpy()
+    agree = float((pred[0] == want_idx[0]).mean())
+    if agree < 0.995:
+        raise AssertionError(f"checkpoint {what}: iteration-1 matches agree {agree}")
+    if not np.array_equal(out.invalid.cpu().numpy(), want_invalid):
+        raise AssertionError(f"checkpoint {what}: invalid differs")
+    held = held_iterations(pred, want_idx, conditioning.cpu().numpy())
+    err = np.abs(out.transforms.cpu().numpy() - want_transforms).max(axis=(2, 3))
+    held_err = max((float(err[:n, b].max()) for b, n in enumerate(held) if n), default=0.0)
+    if held_err > tol:
+        raise AssertionError(f"checkpoint {what}: transforms differ by {held_err} within the "
+                             f"held iterations {held.tolist()}")
+    return {"iteration1_agree": agree, "held_iterations": held.tolist(),
+            "held_transform_err": held_err, "transform_err": float(err.max()),
+            "rows_differ": (pred != want_idx).sum(-1).tolist()}
+
+
+def check_checkpoint(torch, dev):
+    """Trained weights on the card: the staged align checkpoint read with the
+    port's own decoder, its run config with `from_run_config`; the pairs of
+    the checkpoint fixture at 1024 points against JAX's stored outputs, and
+    at 18000 points against the same forward with plain versions for every
+    kernel. Returns (launches of the kernel runs, the phase's record)."""
+    import hashlib
+    from deepsir_tpu_torch.config import from_run_config, replace
+    from deepsir_tpu_torch.math import se3
+    from deepsir_tpu_torch.models.network import ForwardOptions, Network
+    from deepsir_tpu_torch.training import device_batch
+    from deepsir_tpu_torch.utils.checkpoint import read_params, resolve
+    from deepsir_tpu_torch.utils.params import from_jax_params, load_network
+
+    path = resolve(CKPT_RUN / "ckpt")
+    data = path.read_bytes()
+    t0 = time.perf_counter()
+    params = read_params(path)
+    read_s = time.perf_counter() - t0
+    leaves = []
+
+    def walk(tree):
+        for v in tree.values():
+            walk(v) if isinstance(v, dict) else leaves.append(v)
+    walk(params)
+    n_params = sum(int(a.size) for a in leaves)
+    if (len(leaves), n_params) != (340, 2_746_668):
+        raise AssertionError(f"checkpoint: {len(leaves)} leaves, {n_params} params")
+    run = json.loads((CKPT_RUN / "config.json").read_text())
+    cfg = from_run_config(run)
+    record = {"file": str(path.relative_to(ROOT)), "bytes": len(data),
+              "sha256": hashlib.sha256(data).hexdigest(), "leaves": len(leaves),
+              "params": n_params, "decode_s": read_s}
+    log(f"checkpoint {record['file']}: {len(data)} bytes, sha256 {record['sha256']}, "
+        f"{len(leaves)} leaves, {n_params} params, decoded in {read_s:.3f} s")
+    fx = dict(np.load(CKPT_FIXTURE))
+    opts = ForwardOptions(num_iter=cfg.num_reg_iter, clip_weight=True)
+    thresholds = run["eval"]["rte_thresh"], run["eval"]["rre_thresh"]
+    counted = kernels()
+    total = dict.fromkeys(COUNTED, 0)
+    for n in (1024, 18000):
+        cfg_n = replace(cfg, num_points=n)
+        model = load_network(cfg_n, from_jax_params(params, Network(cfg_n)), device=dev)
+        arrays = checkpoint_arrays(fx, n)
+        gt = torch.from_numpy(arrays["transform_gt"]).to(dev)
+        reset_counts(counted)
+        batch = device_batch(cfg_n, arrays, device=dev)
+        out = model.forward_align(batch, opts)
+        torch.cuda.synchronize()
+        launches, _ = read_counts(counted)
+        if launches != expected_launches(cfg_n):
+            raise AssertionError(f"checkpoint {n}: launches {launches}, expected "
+                                 f"{expected_launches(cfg_n)}")
+        for key, value in launches.items():
+            total[key] += value
+        cond = solve_conditioning(torch, out, out.pt_src, out.pt_ref, cfg_n, batch.mask_src)
+        rre, rte = (e.cpu().numpy() for e in se3.pose_error(gt, out.transforms[-1]))
+        succ = (rte < thresholds[0]) & (rre < thresholds[1])
+        if n == 1024:
+            # JAX ran over exact pyramids: so must the card
+            for side in ("src", "ref"):
+                _exact_pyramid_agrees(torch, side, getattr(batch, f"pyramid_{side}"),
+                                      cfg_n.sub_sampling_ratio)
+            rec = _gate("1024 points vs JAX", out, fx["ckpt0_pred_idx"].astype(np.int64),
+                        fx["ckpt0_transforms"], fx["ckpt0_invalid"], cond)
+            want_succ, vs = fx["ckpt0_succ"], "JAX"
+        else:
+            reset_counts(counted)
+            with plain_kernels():
+                pbatch = device_batch(cfg_n, arrays, device=dev)
+                plain = model.forward_align(pbatch, opts)
+            torch.cuda.synchronize()
+            if any(read_counts(counted)[0].values()):
+                raise AssertionError("checkpoint: the plain run launched a kernel")
+            for side in ("src", "ref"):
+                for field in ("neigh_idx", "interp_idx"):
+                    for a, b in zip(getattr(getattr(batch, f"pyramid_{side}"), field),
+                                    getattr(getattr(pbatch, f"pyramid_{side}"), field)):
+                        if not torch.equal(a, b):
+                            raise AssertionError(f"checkpoint 18000: {side} {field} differs "
+                                                 f"from the plain KNN's")
+            rec = _gate("18000 points vs plain", out, plain.pred_idx.cpu().numpy(),
+                        plain.transforms.cpu().numpy(), plain.invalid.cpu().numpy(), cond)
+            prre, prte = (e.cpu().numpy() for e in se3.pose_error(gt, plain.transforms[-1]))
+            want_succ, vs = (prte < thresholds[0]) & (prre < thresholds[1]), "plain"
+        if not np.array_equal(succ, want_succ):
+            raise AssertionError(f"checkpoint {n}: success flags {succ.tolist()}, "
+                                 f"{vs} {want_succ.tolist()}")
+        rec.update(points=n, pairs=int(gt.shape[0]), against=vs, launches=launches,
+                   rre_deg=rre.tolist(), rte=rte.tolist(), success=succ.tolist(),
+                   min_conditioning=float(cond.min()))
+        record[f"n{n}"] = rec
+        log(f"checkpoint {n} points, {rec['pairs']} pairs against {vs}: iteration-1 matches "
+            f"agree {rec['iteration1_agree']:.4f}, held iterations {rec['held_iterations']}, "
+            f"held transform err {rec['held_transform_err']:.3g} (all {rec['transform_err']:.3g}), "
+            f"success {succ.tolist()} equal, RRE {np.round(rre, 3).tolist()} deg, "
+            f"launches {launches}")
+    return total, record
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -822,15 +1071,20 @@ def main() -> int:
             for key, n in launches_lp.items():
                 total_lp[key] += n
     models.clear()
+    for path in FIXTURES:
+        with phase(f"JAX fixture parity {path.name}"):
+            check_fixture(torch, dev, path)
+    with phase("checkpoint"):
+        launches, ckpt = check_checkpoint(torch, dev)
+        for key, n in launches.items():
+            total[key] += n
+    log(json.dumps({"paths": paths}))
+    log(json.dumps({"checkpoint": ckpt}))
     for entry, key in zip((k1, k4, k2, k3), COUNTED):
         entry["launches"] = total[key]
     for entry, key in zip((k2, k3), LP_COUNTED):
         entry["forms"]["bf16"]["launches"] = total_lp[key]
         entry["forms"]["fp32x3"]["launches"] = total[key] - total_lp[key]
-    for path in FIXTURES:
-        with phase(f"JAX fixture parity {path.name}"):
-            check_fixture(torch, dev, path)
-    log(json.dumps({"paths": paths}))
     log(json.dumps({"kernels": [k1, k2, k3, k4]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

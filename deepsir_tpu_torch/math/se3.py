@@ -5,6 +5,8 @@ dims; points are (..., N, 3).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -33,3 +35,16 @@ def transform(g: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     rot = g[..., :3, :3]
     trans = g[..., :3, 3]
     return pts @ rot.transpose(-1, -2) + trans[..., None, :]
+
+
+def pose_error(g_gt: torch.Tensor, g_pred: torch.Tensor, eps: float = 1e-16):
+    """Residual rotation (degrees) and translation magnitude of inv(gt) @ pred
+    (deepsir_tpu/math/se3.py:92). Metrics only: the arccos argument is
+    clipped to [-1 + eps, 1 - eps], which in fp32 is [-1, 1] at the default
+    eps, so its gradient is not finite at zero error."""
+    residual = concatenate(inverse(g_gt), g_pred)
+    rot_trace = residual[..., 0, 0] + residual[..., 1, 1] + residual[..., 2, 2]
+    cos = torch.clamp(0.5 * (rot_trace - 1.0), -1.0 + eps, 1.0 - eps)
+    err_r_deg = torch.arccos(cos) * (180.0 / math.pi)
+    err_t = torch.linalg.vector_norm(residual[..., :, 3], dim=-1)
+    return err_r_deg, err_t

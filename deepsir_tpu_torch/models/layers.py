@@ -3,7 +3,8 @@
 A 1x1 convolution is an `nn.Linear` over the last axis. GroupNorm follows
 flax's channels-last semantics: statistics per sample (leading dim) and
 group, over every other axis and the channels of the group, eps 1e-5, with
-8 groups when C >= 64, else 4.
+8 groups when C >= 64, else 4. `norm="none"` drops the GroupNorm (and its
+parameters), the layout of the FC stacks under `fc_norm="none"`.
 """
 from __future__ import annotations
 
@@ -42,13 +43,18 @@ class GroupNorm(nn.Module):
 
 
 class ConvUnit(nn.Module):
-    """Linear (+ GroupNorm) (+ LeakyReLU 0.2), the reference's MLP2D block."""
+    """Linear (+ GroupNorm) (+ LeakyReLU 0.2), the reference's MLP2D block.
+
+    norm is "group" or "none"."""
 
     def __init__(self, c_in: int, c_out: int, use_norm: bool = True,
-                 use_act: bool = True):
+                 use_act: bool = True, norm: str = "group"):
         super().__init__()
+        if norm not in ("group", "none"):
+            raise NotImplementedError(f"ConvUnit norm={norm!r}")
         self.dense = nn.Linear(c_in, c_out)
-        self.norm = GroupNorm(num_groups(c_out), c_out) if use_norm else None
+        self.norm = (GroupNorm(num_groups(c_out), c_out)
+                     if use_norm and norm == "group" else None)
         self.use_act = use_act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -63,12 +69,12 @@ class ConvUnit(nn.Module):
 class MLP(nn.Module):
     """Stack of ConvUnits; norm and activation after every layer but the last."""
 
-    def __init__(self, c_in: int, channels: Sequence[int]):
+    def __init__(self, c_in: int, channels: Sequence[int], norm: str = "group"):
         super().__init__()
         units = []
         for i, ch in enumerate(channels):
             last = i == len(channels) - 1
-            units.append(ConvUnit(c_in, ch, use_norm=not last, use_act=not last))
+            units.append(ConvUnit(c_in, ch, use_norm=not last, use_act=not last, norm=norm))
             c_in = ch
         self.units = nn.ModuleList(units)
 

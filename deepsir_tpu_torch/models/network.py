@@ -6,18 +6,21 @@ keypoints, then `num_iter` registration iterations: re-aggregate the source
 descriptors at the current pose, nearest-descriptor search (kernel K2 on the
 card; K3, both directions, when the mutual gate or the `recip` channel needs
 the reverse match), inlier weighting over [src ; matched ref ; extras]
-pairs, the optional mutual gate, weighted Kabsch, compose. The ref
-descriptor, the inlier net's LocSE cache and mlp_feat of the source features
-are computed once, outside the loop.
+pairs, the validity mask, the optional mutual gate, weighted Kabsch, compose
+(or, under `absolute_pose_solve`, solve the original source directly). The
+ref descriptor, the inlier net's LocSE cache and mlp_feat of the source
+features are computed once, outside the loop. With
+`ForwardOptions.refine_stride` > 1 iterations 2.. run on every stride-th
+source point, over a second pyramid built inside the forward.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
-from deepsir_tpu_torch.config import ModelConfig, check_supported, inlier_extras
+from deepsir_tpu_torch.config import ModelConfig, check_supported, inlier_extras, replace
 from deepsir_tpu_torch.math import se3
 from deepsir_tpu_torch.models.layers import MLP
 from deepsir_tpu_torch.models.randla import RandLA
@@ -25,7 +28,8 @@ from deepsir_tpu_torch.models.scoring import score_points
 from deepsir_tpu_torch.ops.distance import (mutual_gate, nearest_neighbour_bidirectional,
                                             nearest_neighbour_index)
 from deepsir_tpu_torch.ops.gather import gather_points
-from deepsir_tpu_torch.ops.pyramid import Pyramid, concat_pyramids
+from deepsir_tpu_torch.ops.pyramid import (Pyramid, build_cloud_pyramid, concat_pyramids,
+                                           slice_neighbours)
 from deepsir_tpu_torch.ops.svd3 import weighted_kabsch
 
 
@@ -36,9 +40,16 @@ class PairBatch(NamedTuple):
     pyramid_src: Pyramid
     pyramid_ref: Pyramid
     transform_gt: torch.Tensor         # (B, 3, 4)
+    # validity of ragged clouds padded to N by tile duplication (1.0 a real
+    # point, 0.0 padding; None: all real). The forward reads only mask_src.
+    mask_src: Optional[torch.Tensor] = None    # (B, N) float32
+    mask_ref: Optional[torch.Tensor] = None
 
 
 class AlignOutput(NamedTuple):
+    """With refine_stride > 1, pt_src, inlier_logits and pred_idx describe the
+    strided source subset and the refinement iterations only; transforms
+    stacks all num_iter poses (deepsir_tpu/models/network.py:483-489)."""
     transforms: torch.Tensor           # (iters, B, 3, 4) cumulative src->ref
     inlier_logits: torch.Tensor        # (iters, B, N)
     pred_idx: torch.Tensor             # (iters, B, N) matched ref index, int64
@@ -52,6 +63,18 @@ class AlignOutput(NamedTuple):
 class ForwardOptions(NamedTuple):
     num_iter: int = 2
     clip_weight: bool = False
+    # iterations 2.. on every stride-th source point (1: all on every point)
+    refine_stride: int = 1
+
+
+class _Source(NamedTuple):
+    """What the registration iterations read of the source cloud."""
+    xyz0: torch.Tensor                 # (B, N, 3) untransformed
+    score: torch.Tensor                # (B, N)
+    ff: torch.Tensor                   # (B, N, C) mlp_feat of the backbone features
+    pyramid: Pyramid                   # the inlier net's neighbour lists
+    pos: tuple                         # the inlier net's LocSE cache
+    mask: Optional[torch.Tensor]       # (B, N) validity, or None
 
 
 def l2_normalize(f: torch.Tensor) -> torch.Tensor:
@@ -67,12 +90,17 @@ class Network(nn.Module):
         self.cfg = cfg
         c = cfg.out_feat_dim
         self.feat_extractor = RandLA(cfg, cfg.num_classes, cfg.feat_len)
-        self.mlp_feat = MLP(c, (c, 128, c))
-        self.mlp_att = MLP(4, (32, 64, 128, 256, c))
-        self.mlp_proj = MLP(c, (c,))
+        self.mlp_feat = MLP(c, (c, 128, c), norm=cfg.fc_norm)
+        self.mlp_att = MLP(4, (32, 64, 128, 256, c), norm=cfg.fc_norm)
+        self.mlp_proj = MLP(c, (c,), norm=cfg.fc_norm)
         # [src xyz ; matched ref xyz] plus one channel per extra feature
         self.extras = inlier_extras(cfg)
-        self.inlier_model = RandLA(cfg, 1, 6 + len(self.extras))
+        # inlier_num_layers > 0 keeps the first levels, which read the first
+        # levels of the same source pyramid
+        L = cfg.inlier_num_layers or len(cfg.d_out)
+        self.inlier_model = RandLA(
+            replace(cfg, d_out=cfg.d_out[:L], sub_sampling_ratio=cfg.sub_sampling_ratio[:L]),
+            1, 6 + len(self.extras))
 
     def aggregate_side(self, xyz, feat, score):
         """One cloud's L2-normalised descriptor: proj(mlp_feat(f) + mlp_att([xyz; s]))."""
@@ -84,30 +112,47 @@ class Network(nn.Module):
         return l2_normalize(self.mlp_proj(ff + g))
 
     def backbone_pair(self, batch: PairBatch):
-        """One backbone pass over src and ref stacked along the batch dim."""
+        """One backbone pass over src and ref stacked along the batch dim, on
+        the first `backbone_num_knn` neighbours when that is > 0."""
         b = batch.points_src.shape[0]
         pts = torch.cat([batch.points_src, batch.points_ref], dim=0)
-        pyr = concat_pyramids(batch.pyramid_src, batch.pyramid_ref)
+        pyr = slice_neighbours(concat_pyramids(batch.pyramid_src, batch.pyramid_ref),
+                               self.cfg.backbone_num_knn)
         feat, logits = self.feat_extractor(pts, pyr)
         return feat[:b], logits[:b], feat[b:], logits[b:]
 
     def score_pair(self, batch: PairBatch, feat_src, feat_ref, logits_src, logits_ref):
         """Keypoint scores of both clouds in one stacked call."""
         b = batch.points_src.shape[0]
+        neigh = torch.cat([batch.pyramid_src.neigh_idx[0], batch.pyramid_ref.neigh_idx[0]], dim=0)
+        if self.cfg.backbone_num_knn > 0:
+            # the backbone's neighbourhoods
+            neigh = neigh[..., :self.cfg.backbone_num_knn]
         score = score_points(
             torch.cat([feat_src, feat_ref], dim=0),
             torch.cat([batch.points_src[..., :3], batch.points_ref[..., :3]], dim=0),
-            torch.cat([logits_src, logits_ref], dim=0),
-            torch.cat([batch.pyramid_src.neigh_idx[0],
-                       batch.pyramid_ref.neigh_idx[0]], dim=0))
+            torch.cat([logits_src, logits_ref], dim=0), neigh)
         return score[:b], score[b:]
+
+    def _source(self, xyz0, score, ff, pyramid, mask) -> _Source:
+        pyr = slice_neighbours(pyramid, self.cfg.inlier_num_knn)
+        return _Source(xyz0, score, ff, pyr, self.inlier_model.pos_cache(pyr), mask)
 
     @torch.no_grad()
     def forward_align(self, batch: PairBatch, opts: ForwardOptions) -> AlignOutput:
         """Iterative registration, inference only."""
         cfg = self.cfg
-        feat_src0, logits_src, feat_ref0, logits_ref = self.backbone_pair(batch)
+        stride = opts.refine_stride
+        refine = stride > 1 and opts.num_iter > 1
         xyz_src0 = batch.points_src[..., :3]
+        if refine:
+            n_bottom = len(range(0, xyz_src0.shape[1], stride))
+            for r in cfg.sub_sampling_ratio:
+                n_bottom //= r
+            if n_bottom < 1:
+                raise ValueError(f"refine_stride={stride} leaves too few points for the "
+                                 f"inlier pyramid (ratios {cfg.sub_sampling_ratio})")
+        feat_src0, logits_src, feat_ref0, logits_ref = self.backbone_pair(batch)
         xyz_ref = batch.points_ref[..., :3].contiguous()
         score_src, score_ref = self.score_pair(batch, feat_src0, feat_ref0,
                                                logits_src, logits_ref)
@@ -115,18 +160,44 @@ class Network(nn.Module):
         # loop-invariant: the ref descriptor, the inlier LocSE cache and
         # mlp_feat of the source features
         fr = self.aggregate_side(xyz_ref, feat_ref0, score_ref)
-        pyr = batch.pyramid_src
-        inlier_pos = self.inlier_model.pos_cache(pyr)
         ff_src = self.mlp_feat(feat_src0)
+        full = self._source(xyz_src0, score_src, ff_src, batch.pyramid_src, batch.mask_src)
 
         b = xyz_src0.shape[0]
-        xyz_src = xyz_src0
         cum = se3.identity((b,), device=xyz_src0.device, dtype=xyz_src0.dtype)
         invalid = torch.zeros(b, dtype=torch.bool, device=xyz_src0.device)
+        _, cum, invalid, transforms, logits, idx = self._iterate(
+            full, fr, xyz_ref, xyz_src0, cum, invalid,
+            1 if refine else opts.num_iter, opts.clip_weight)
+        src = full
+        if refine:
+            # iteration 1 ran on every point; the rest run on the strided
+            # subset, over its own pyramid and LocSE cache, entered at the
+            # pose iteration 1 reached
+            xyz0_sub = xyz_src0[:, ::stride].contiguous()
+            mask = batch.mask_src
+            src = self._source(xyz0_sub, score_src[:, ::stride], ff_src[:, ::stride],
+                               build_cloud_pyramid(cfg, xyz0_sub),
+                               None if mask is None else mask[:, ::stride])
+            _, cum, invalid, t_rest, logits, idx = self._iterate(
+                src, fr, xyz_ref, se3.transform(cum, xyz0_sub), cum, invalid,
+                opts.num_iter - 1, opts.clip_weight)
+            transforms = transforms + t_rest
+        return AlignOutput(
+            transforms=torch.stack(transforms), inlier_logits=torch.stack(logits),
+            pred_idx=torch.stack(idx), invalid=invalid,
+            pt_src=src.xyz0, pt_ref=xyz_ref, score_src=score_src, score_ref=score_ref)
+
+    def _iterate(self, src: _Source, fr, xyz_ref, xyz_src, cum, invalid, num_iter: int,
+                 clip_weight: bool):
+        """`num_iter` registration iterations over `src` from the pose
+        (xyz_src, cum); returns the last (xyz_src, cum, invalid) and the
+        per-iteration cumulative transforms, inlier logits and matches."""
+        cfg = self.cfg
         need_ridx = cfg.mutual_check or "recip" in self.extras
         transforms, logits_iters, idx_iters = [], [], []
-        for _ in range(opts.num_iter):
-            fs = self.aggregate_moving(xyz_src, score_src, ff_src)
+        for _ in range(num_iter):
+            fs = self.aggregate_moving(xyz_src, src.score, src.ff)
             if need_ridx:
                 idx, ridx = nearest_neighbour_bidirectional(fs, fr)     # (B, N), (B, M)
             else:
@@ -140,27 +211,32 @@ class Network(nn.Module):
                     fs - gather_points(fr, idx), dim=-1, keepdim=True))
             if "recip" in self.extras:
                 # |src_i - src[reverse(idx_i)]| in untransformed coordinates
-                back = gather_points(xyz_src0, ridx)                    # (B, M, 3)
+                back = gather_points(src.xyz0, ridx)                    # (B, M, 3)
                 feats.append(torch.linalg.vector_norm(
-                    gather_points(back, idx) - xyz_src0, dim=-1, keepdim=True))
+                    gather_points(back, idx) - src.xyz0, dim=-1, keepdim=True))
             pair_feats = torch.cat(feats, dim=-1)
-            _, logit = self.inlier_model(pair_feats, pyr, pos_cache=inlier_pos)
+            _, logit = self.inlier_model(pair_feats, src.pyramid, pos_cache=src.pos)
             logit = logit[..., 0]
             weights = torch.sigmoid(logit)
-            if opts.clip_weight and cfg.clip_weight_thresh > 0:
+            if clip_weight and cfg.clip_weight_thresh > 0:
                 weights = torch.where(weights < cfg.clip_weight_thresh,
                                       torch.zeros_like(weights), weights)
+            if src.mask is not None:
+                # padded rows duplicate real points: no double vote
+                weights = weights * src.mask
             if cfg.mutual_check:
-                weights = weights * mutual_gate(idx, ridx, src_xyz=xyz_src0,
+                weights = weights * mutual_gate(idx, ridx, src_xyz=src.xyz0,
                                                 tol=cfg.mutual_check_tol)
-            r_t, bad = weighted_kabsch(xyz_src, xyz_ref_new, weights)
-            xyz_src = se3.transform(r_t, xyz_src)
-            cum = se3.concatenate(r_t, cum)
+            if cfg.absolute_pose_solve:
+                # the untransformed source straight onto the matched refs
+                cum, bad = weighted_kabsch(src.xyz0, xyz_ref_new, weights)
+                xyz_src = se3.transform(cum, src.xyz0)
+            else:
+                r_t, bad = weighted_kabsch(xyz_src, xyz_ref_new, weights)
+                xyz_src = se3.transform(r_t, xyz_src)
+                cum = se3.concatenate(r_t, cum)
             invalid = invalid | bad
             transforms.append(cum)
             logits_iters.append(logit)
             idx_iters.append(idx)
-        return AlignOutput(
-            transforms=torch.stack(transforms), inlier_logits=torch.stack(logits_iters),
-            pred_idx=torch.stack(idx_iters), invalid=invalid,
-            pt_src=xyz_src0, pt_ref=xyz_ref, score_src=score_src, score_ref=score_ref)
+        return xyz_src, cum, invalid, transforms, logits_iters, idx_iters

@@ -1,7 +1,10 @@
 """RandLA-Net encoder-decoder over an index pyramid (deepsir_tpu/models/randla.py).
 
-Channel-last throughout. Decoder skips are the 'pre' scheme: each decoder
-stage concatenates the same-level encoder output before pooling. The LocSE
+Channel-last throughout. Decoder skips follow `cfg.randla_skips`: 'pre'
+concatenates each level's encoder output before pooling; 'post' (the
+reference's scheme) takes, for levels l >= 1, the pooled output of encoder
+l-1. A network built from a truncated config (`d_out[:L]`) reads only the
+first L levels of a deeper pyramid. The LocSE
 positional branch is exposed as `pos_cache` so a caller that runs the same
 network over the same pyramid repeatedly (the registration loop) computes it
 once. Dropout is a no-op at inference and is not modelled.
@@ -87,6 +90,7 @@ class RandLA(nn.Module):
         super().__init__()
         d = cfg.d_out
         L = len(d)
+        self.post_skips = cfg.randla_skips == "post"
         self.mlp_pre = ConvUnit(feat_len, 8)
         c_in = [8] + [2 * x for x in d[:-1]]
         self.enc = nn.ModuleList(DilatedResBlock(c, x) for c, x in zip(c_in, d))
@@ -95,12 +99,14 @@ class RandLA(nn.Module):
         x_ch = 2 * d[-1]
         for j in range(L):
             lvl = L - j - 1
+            skip = 2 * d[lvl - 1] if self.post_skips and lvl > 0 else 2 * d[lvl]
             out = 2 * d[max(L - j - 2, 0)]
-            dec.append(ConvUnit(2 * d[lvl] + x_ch, out))
+            dec.append(ConvUnit(skip + x_ch, out))
             x_ch = out
         self.dec = nn.ModuleList(dec)
         self.mlp_out = nn.Linear(x_ch, cfg.out_feat_dim, bias=False)
-        self.fc_label = MLP(cfg.out_feat_dim, (cfg.out_feat_dim, 32, num_classes))
+        self.fc_label = MLP(cfg.out_feat_dim, (cfg.out_feat_dim, 32, num_classes),
+                            norm=cfg.fc_norm)
 
     def pos_cache(self, pyr: Pyramid) -> Tuple[PosEnc, ...]:
         """Per-encoder-level LocSE projections (loop-invariant)."""
@@ -110,14 +116,17 @@ class RandLA(nn.Module):
     def forward(self, features: torch.Tensor, pyr: Pyramid,
                 pos_cache: Optional[Tuple[PosEnc, ...]] = None):
         x = self.mlp_pre(features)
+        L = len(self.enc)
         skips = []
         for i, enc in enumerate(self.enc):
             x = enc(x, pyr.xyz[i], pyr.neigh_idx[i],
                     pos=pos_cache[i] if pos_cache else None)
-            skips.append(x)
+            if not self.post_skips or i == 0:
+                skips.append(x)
             x = max_pool_neighbours(x, pyr.pool_idx[i])
+            if self.post_skips and i < L - 1:
+                skips.append(x)                       # level i+1's skip
         x = self.mlp_mid(x)
-        L = len(self.enc)
         for j, dec in enumerate(self.dec):
             lvl = L - j - 1
             up = nearest_interpolate(x, pyr.interp_idx[lvl])

@@ -60,6 +60,16 @@ def build_pyramid(xyz: torch.Tensor, num_knn: int = 16,
     return Pyramid(tuple(xyzs), tuple(neighs), tuple(pools), tuple(interps))
 
 
+def build_cloud_pyramid(cfg, xyz: torch.Tensor) -> Pyramid:
+    """build_pyramid over clouds (B, N, 3) in the point order of `cfg` (a
+    ModelConfig): "strided" with the window halo under
+    `pyramid_order="morton"`, "first" with no window otherwise."""
+    morton = cfg.pyramid_order == "morton"
+    return build_pyramid(xyz, cfg.num_knn, cfg.sub_sampling_ratio,
+                         sample="strided" if morton else "first",
+                         window_halo=cfg.knn_window_halo if morton else 0)
+
+
 def slice_neighbours(pyr: Pyramid, k: int) -> Pyramid:
     """Truncate every neighbour list to its k nearest entries (lists are
     ascending). k <= 0 or k >= K returns `pyr` unchanged."""

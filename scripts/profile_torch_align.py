@@ -6,8 +6,8 @@ CUDA card.
 
 Drives `device_batch` -> `Network.forward_align` at chip_smoke.py's full-width
 configuration (18000 points, 5 iterations, seeded random weights) along one of
-chip_smoke.py's paths (default, F, F+gate, M; M's clouds are curve-sorted on
-the host, outside the timed steps) and prints:
+chip_smoke.py's paths (default, F, F+gate, M, D, flag, R; M's clouds are
+curve-sorted on the host, outside the timed steps) and prints:
 - host time per step under `torch.cuda.synchronize()`: pyramid build
   (`device_batch`), backbone pass, scoring, the whole forward;
 - torch.profiler over one batch: device time by kernel (top 25), the number
@@ -46,20 +46,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_align: no CUDA device", flush=True)
         return 1
-    from deepsir_tpu_torch.config import ModelConfig
     from deepsir_tpu_torch.models.network import ForwardOptions
     from deepsir_tpu_torch.training import device_batch
     from deepsir_tpu_torch.utils.params import init_params, load_network
 
     dev = torch.device("cuda", 0)
-    options, _ = chip_smoke.PATHS[args.path]
-    cfg = ModelConfig(feat_len=chip_smoke.FEAT_LEN, num_points=chip_smoke.N_POINTS,
-                      num_reg_iter=chip_smoke.N_ITERS, **options)
+    _, stride, _ = chip_smoke.PATHS[args.path]
+    cfg = chip_smoke.path_config(args.path)
+    options = {k: v for k, v in vars(cfg).items() if v != getattr(type(cfg), k)}
     model = load_network(cfg, init_params(cfg, seed=0), device=dev)
-    opts = ForwardOptions(num_iter=chip_smoke.N_ITERS, clip_weight=True)
+    opts = ForwardOptions(num_iter=cfg.num_reg_iter, clip_weight=True, refine_stride=stride)
     rng = np.random.default_rng(0)
     morton = cfg.pyramid_order == "morton"
-    feeds = [chip_smoke.make_arrays(rng, args.batch, morton) for _ in range(args.reps + 1)]
+    feeds = [chip_smoke.make_arrays(rng, args.batch, morton, cfg.feat_len)
+             for _ in range(args.reps + 1)]
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -124,7 +124,7 @@ def main() -> int:
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "path": args.path, "options": options, "batch": args.batch,
+        "path": args.path, "options": options, "refine_stride": stride, "batch": args.batch,
         "step_ms": step_ms, "window_ms": window_ms,
         "device_busy_ms": busy_ms, "device_events": events, "top": top}, indent=1))
     return 0

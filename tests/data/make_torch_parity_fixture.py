@@ -34,6 +34,11 @@ MODEL_PATHS = dict(MODEL, num_points=4096, inlier_extra_feats="dist,recip",
 BATCH = 2
 SEED = 0
 
+OUT_CKPT = Path(__file__).with_name("torch_parity_ckpt.npz")
+ROOT = Path(__file__).resolve().parents[2]
+CKPTS = ("logs_r3/staged_po/260817_191109_align", "logs_r3/260817_133900_align_po")
+CKPT_PAIRS = ((1024, 8), (18000, 2))          # (points per cloud, pairs)
+
 
 def make_arrays(seed: int = SEED, model: Dict = MODEL) -> Dict[str, np.ndarray]:
     """src: unit-normal clouds; ref: each src cloud rotated ~10 deg about a
@@ -111,15 +116,134 @@ def build_paths(seed: int = SEED) -> Dict[str, np.ndarray]:
     return build(seed, MODEL_PATHS, np.uint16)
 
 
-def main() -> None:
+def run_config(ckpt: str = CKPTS[0], num_points: int = None):
+    """The JAX Config of a tracked run's config.json, at `num_points`."""
+    from deepsir_tpu.config import Config, DataConfig, EvalConfig, ModelConfig
+    run = json.loads((ROOT / ckpt / "config.json").read_text())
+    model = {k: tuple(v) if isinstance(v, list) else v for k, v in run["model"].items()}
+    if num_points is not None:
+        model["num_points"] = num_points
+    return Config(pipeline="align", model=ModelConfig(**model),
+                  data=DataConfig(**run["data"]), eval=EvalConfig(**run["eval"])).resolved()
+
+
+def ckpt_pairs(num_points: int, pairs: int) -> Dict[str, np.ndarray]:
+    """The first `pairs` test pairs of the staged checkpoint's synthetic data
+    at `num_points`: the arrays the eval feeds device_batch."""
+    from deepsir_tpu.data.base import make_pair_arrays
+    from deepsir_tpu.data.datasets import get_test_dataset
+    ds = get_test_dataset(run_config(num_points=num_points))
+    batch = make_pair_arrays([ds.get_sample(i, np.random.default_rng(i)) for i in range(pairs)])
+    return {k: batch[k] for k in ("points_src", "points_ref", "transform_gt",
+                                  "mask_src", "mask_ref")}
+
+
+def pack_cloud(points: np.ndarray, mask: np.ndarray):
+    """(raw rows of each cloud, zero-padded to the longest; raw counts).
+    The data layer pads a cloud by tiling its raw rows (fixed_resample);
+    chip_smoke.checkpoint_arrays undoes this."""
+    raw = mask.sum(axis=1).astype(np.int64)
+    rows = np.zeros((len(points), raw.max(), points.shape[-1]), points.dtype)
+    for b, n in enumerate(raw):
+        assert (mask[b, :n] == 1).all() and (mask[b, n:] == 0).all()
+        rows[b, :n] = points[b, :n]
+    return rows, raw
+
+
+def exact_knn(query: np.ndarray, ref: np.ndarray, k: int) -> np.ndarray:
+    """(B, N, 3) x (B, M, 3) -> the k nearest refs (B, N, k), ranked by
+    float64 distance with ties to the lower index."""
+    d = ((query[:, :, None, :].astype(np.float64) - ref[:, None, :, :]) ** 2).sum(-1)
+    return np.argsort(d, axis=-1, kind="stable")[..., :k].astype(np.int32)
+
+
+def exact_pyramid(xyz: np.ndarray, num_knn: int, ratios):
+    """The shuffled-order pyramid of clouds (B, N, 3) over exact_knn."""
+    from deepsir_tpu.ops.pyramid import Pyramid
+    levels = ([], [], [], [])
+    pc = xyz
+    for r in ratios:
+        n_next = pc.shape[1] // r
+        neigh = exact_knn(pc, pc, num_knn)
+        for out, value in zip(levels, (pc, neigh, neigh[:, :n_next],
+                                       exact_knn(pc, pc[:, :n_next], 1)[..., 0])):
+            out.append(value)
+        pc = pc[:, :n_next]
+    return Pyramid(*(tuple(v) for v in levels))
+
+
+def ckpt_outputs(ckpt: str, arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The JAX forward of a tracked align checkpoint on `arrays` (5
+    iterations, clip_weight): transforms, matches and `invalid` over exact
+    pyramids; pose errors and success flags as the eval runs it."""
+    import jax
+    from deepsir_tpu.math.se3 import pose_error
+    from deepsir_tpu.models import ForwardOptions, Network
+    from deepsir_tpu.models.network import PairBatch
+    from deepsir_tpu.training import device_batch
+    from deepsir_tpu.utils.checkpoint import partial_restore
+    cfg = run_config(ckpt, arrays["points_src"].shape[1])
+    model = Network(cfg.model, pipeline="align")
+    opts = ForwardOptions(num_iter=cfg.model.num_reg_iter, clip_weight=True)
+    target = jax.eval_shape(lambda a: model.init(jax.random.PRNGKey(0),
+                                                 device_batch(cfg, a), opts), arrays)
+    target = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), target)
+    params, loaded = partial_restore(str(ROOT / ckpt / "ckpt"), target)
+    assert loaded == len(jax.tree_util.tree_leaves(target)), loaded
+
+    m = cfg.model
+    pyramids = [exact_pyramid(arrays[f"points_{s}"][..., :3], m.num_knn, m.sub_sampling_ratio)
+                for s in ("src", "ref")]
+
+    @jax.jit
+    def exact(p, a, pyr_src, pyr_ref):
+        batch = PairBatch(a["points_src"], a["points_ref"], pyr_src, pyr_ref,
+                          a["transform_gt"], mask_src=a["mask_src"], mask_ref=a["mask_ref"])
+        _, out = model.apply(p, batch, opts, train=False)
+        return out.transforms, out.pred_idx, out.invalid
+
+    @jax.jit
+    def eval_forward(p, a):
+        _, out = model.apply(p, device_batch(cfg, a), opts, train=False)
+        return out.transforms[-1]
+
+    transforms, idx, invalid = jax.device_get(exact(params, arrays, *pyramids))
+    final = jax.device_get(eval_forward(params, arrays))
+    rre, rte = (np.asarray(e) for e in pose_error(arrays["transform_gt"], final))
+    succ = (rte < cfg.eval.rte_thresh) & (rre < cfg.eval.rre_thresh)
+    return {"transforms": np.asarray(transforms), "pred_idx": np.asarray(idx, np.uint16),
+            "invalid": np.asarray(invalid), "rre": rre, "rte": rte, "succ": succ}
+
+
+def build_ckpt() -> Dict[str, np.ndarray]:
+    """The checkpoint fixture's arrays."""
+    fixture = {"checkpoints": np.asarray(CKPTS)}
+    for n, pairs in CKPT_PAIRS:
+        arrays = ckpt_pairs(n, pairs)
+        fixture[f"n{n}_transform_gt"] = arrays["transform_gt"]
+        for side in ("src", "ref"):
+            rows, raw = pack_cloud(arrays[f"points_{side}"], arrays[f"mask_{side}"])
+            fixture[f"n{n}_{side}_rows"], fixture[f"n{n}_{side}_raw"] = rows, raw
+    from chip_smoke import checkpoint_arrays
+    arrays = checkpoint_arrays(fixture, 1024)
+    for i, ckpt in enumerate(CKPTS):
+        for key, value in ckpt_outputs(ckpt, arrays).items():
+            fixture[f"ckpt{i}_{key}"] = value
+    return fixture
+
+
+def main(names=("small", "paths", "ckpt")) -> None:
     import jax
     jax.config.update("jax_platforms", "cpu")
-    for out, fixture in ((OUT, build()), (OUT_PATHS, build_paths())):
-        np.savez_compressed(out, **fixture)
+    makers = {"small": (OUT, build), "paths": (OUT_PATHS, build_paths),
+                "ckpt": (OUT_CKPT, build_ckpt)}
+    for name in names:
+        out, make = makers[name]
+        np.savez_compressed(out, **make())
         print(f"wrote {out} ({out.stat().st_size} bytes)")
 
 
 if __name__ == "__main__":
     import sys
-    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
-    main()
+    sys.path.insert(0, str(ROOT))
+    main(sys.argv[1:] or ("small", "paths", "ckpt"))
