@@ -28,11 +28,18 @@ and runs trained weights: the staged align checkpoint, read by the port's
 own msgpack decoder, on the synthetic pairs of
 tests/data/torch_parity_ckpt.npz, against JAX's outputs at 1024 points and
 against the same forward with every kernel replaced by its plain version at
-18000 points. Imports neither JAX nor the JAX package.
+18000 points; and trains ("train" phase): the staged checkpoint resumed with
+its Adam state for two steps on the 1024-point pairs of
+tests/data/torch_parity_train.npz against JAX's stored steps, four
+full-width steps (18000 points, dropout 0.5) each on the default options
+(K1, K2) and F (K1, K3) with seeded weights, one step of each and of the
+staged checkpoint at 18000 points against the same step with plain versions
+of every kernel, and a checkpoint written and read back. Imports neither
+JAX nor the JAX package.
 
 Output: one line per phase with its wall time; then a JSON line
 {"paths": [...]}, a JSON line {"checkpoint": {...}}, a JSON line
-{"kernels": [...]}, the card's name and power
+{"train": {...}}, a JSON line {"kernels": [...]}, the card's name and power
 limit as nvidia-smi reports them, and last {"ok": true, "device": {...}}.
 Any failure raises: the exit code is not 0 and the last line is not
 printed. Needs one CUDA card.
@@ -43,7 +50,7 @@ import json
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -1028,6 +1035,429 @@ def check_checkpoint(torch, dev):
     return total, record
 
 
+# ---------------------------------------------------------------- training
+
+TRAIN_FIXTURE = ROOT / "tests" / "data" / "torch_parity_train.npz"
+TRAIN_STEPS = 4                   # full-width steps per case: one warm-up, three timed
+# full-width training cases: ModelConfig options, launches per step of K1, K4, K2, K3
+TRAIN_CASES = {"default": ({}, (16, 0, 2, 0)), "F": (FLAGSHIP, (16, 0, 0, 2))}
+TRAIN_THRES_RADIUS = 0.9          # deepsir_tpu/config.py:DataConfig: voxel 0.3 x 3
+# a stored leaf above this many entries is summarised (the fixture's size)
+SUMMARY_ENTRIES = 4096
+N_PROJECTIONS, N_TOP = 16, 256
+
+
+def _projections(n: int) -> np.ndarray:
+    """N_PROJECTIONS seeded unit Gaussian directions in R^n."""
+    g = np.random.default_rng(n).standard_normal((N_PROJECTIONS, n))
+    return g / np.linalg.norm(g, axis=1, keepdims=True)
+
+
+def summarize_leaf(arr) -> dict:
+    """A leaf as the train fixture stores it: whole up to SUMMARY_ENTRIES
+    entries; else its L2 norm, its projections on N_PROJECTIONS seeded unit
+    directions and its N_TOP largest-magnitude entries with their flat
+    indices."""
+    arr = np.asarray(arr, np.float32)
+    if arr.size <= SUMMARY_ENTRIES:
+        return {"full": arr}
+    flat = arr.astype(np.float64).ravel()
+    top = np.argsort(-np.abs(flat), kind="stable")[:N_TOP]
+    return {"norm": np.linalg.norm(flat), "proj": _projections(flat.size) @ flat,
+            "top_idx": top.astype(np.int32), "top_val": flat[top].astype(np.float32)}
+
+
+def leaf_error(got, stored: dict) -> float:
+    """`got` against a stored leaf, relative to the leaf's scale: the largest
+    entry difference over the leaf's largest magnitude (whole leaves, and
+    the stored top entries of summarised ones), and the norm's and the
+    projections' differences over the norm."""
+    got = np.asarray(got, np.float64)
+    if "full" in stored:
+        want = stored["full"].astype(np.float64)
+        return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+    flat = got.ravel()
+    top_val = stored["top_val"].astype(np.float64)
+    norm = float(stored["norm"])
+    return max(float(np.abs(flat[stored["top_idx"]] - top_val).max() / np.abs(top_val).max()),
+               abs(np.linalg.norm(flat) - norm) / norm,
+               float(np.abs(_projections(flat.size) @ flat - stored["proj"]).max() / norm))
+
+
+def stored_leaves(fx, prefix: str) -> dict:
+    """{flax path: {field: array}} of the fixture's entries under `prefix`."""
+    leaves: dict = {}
+    for key, value in fx.items():
+        if key.startswith(prefix + "/"):
+            path, field = key[len(prefix) + 1:].rsplit("/", 1)
+            leaves.setdefault(path, {})[field] = value
+    return leaves
+
+
+def flax_leaves(tensors) -> dict:
+    """{port parameter name under inlier_model: tensor} -> {flax path: numpy
+    array in flax's layout}."""
+    from deepsir_tpu_torch.utils.params import flax_path
+    out = {}
+    for name, t in tensors.items():
+        path, transpose = flax_path("inlier_model." + name)
+        arr = t.detach().cpu().numpy()
+        out["/".join(path)] = arr.T if transpose else arr
+    return out
+
+
+def _held(pred_idx, want_idx) -> int:
+    """Leading iterations whose matches all equal the reference's."""
+    same = (np.asarray(pred_idx) == np.asarray(want_idx)).reshape(len(want_idx), -1).all(-1)
+    return int(np.argmin(same)) if not same.all() else len(same)
+
+
+def parity_training(dev):
+    """The train fixture, its pairs, and the staged align checkpoint resumed
+    on `dev` with its Adam state for training at the fixture's size with
+    dropout off: (fixture, arrays, RunConfig, model, optimizer, count)."""
+    from deepsir_tpu_torch.config import read_run_config, replace
+    from deepsir_tpu_torch.models.network import Network
+    from deepsir_tpu_torch.training import make_optimizer
+    from deepsir_tpu_torch.utils.checkpoint import load_train_state
+    fx = dict(np.load(TRAIN_FIXTURE))
+    cfgs = read_run_config(CKPT_RUN)
+    cfgs = cfgs._replace(model=replace(cfgs.model, num_points=int(fx["points_src"].shape[1]),
+                                       dropout_rate=0.0))
+    model = Network(cfgs.model).to(dev)
+    opt = make_optimizer(model)
+    count = load_train_state(CKPT_RUN / "ckpt", model, opt)
+    arrays = {k: fx[k] for k in ("points_src", "points_ref", "transform_gt", "mask_src",
+                                 "mask_ref")}
+    return fx, arrays, cfgs, model, opt, count
+
+
+def seeded_training(dev, name: str):
+    """A full-width training case of TRAIN_CASES on `dev`: (RunConfig, model
+    with seeded weights, its optimizer). The loss reads the DataConfig
+    default radius; the schedule, TrainConfig's defaults."""
+    from deepsir_tpu_torch.config import LossConfig, ModelConfig, RunConfig, TrainConfig
+    from deepsir_tpu_torch.models.network import Network
+    from deepsir_tpu_torch.training import make_optimizer
+    from deepsir_tpu_torch.utils.params import init_params
+    cfg = ModelConfig(feat_len=FEAT_LEN, num_points=N_POINTS, **TRAIN_CASES[name][0])
+    cfgs = RunConfig(cfg, LossConfig(thres_radius=TRAIN_THRES_RADIUS), TrainConfig())
+    model = Network(cfg)
+    model.load_state_dict(init_params(cfg, seed=0))
+    model.to(dev)
+    return cfgs, model, make_optimizer(model)
+
+
+def train_parity(torch, dev, terms_rtol=1e-4, leaf_rtol=1e-3):
+    """The staged align checkpoint resumed with its Adam state (count 1760)
+    and run config (dropout_rate 0), two training steps on the fixture's
+    1024-point pairs against the JAX package's stored steps: loss terms
+    within `terms_rtol` relative, the inlier grads of step 1 and the inlier
+    params after step 2 within `leaf_rtol` of each leaf's scale
+    (`leaf_error`), the lr and `skipped` equal; each held only while every
+    iteration's matches equal JAX's. Returns (launches, record)."""
+    from deepsir_tpu_torch.training import device_batch, train_step
+    fx, arrays, cfgs, model, opt, count = parity_training(dev)
+    if count != int(fx["count"]):
+        raise AssertionError(f"train parity: resumed count {count}, JAX {int(fx['count'])}")
+    # JAX ran over exact pyramids: so must the port
+    batch = device_batch(cfgs.model, arrays, device=dev)
+    for side in ("src", "ref"):
+        _exact_pyramid_agrees(torch, f"train {side}", getattr(batch, f"pyramid_{side}"),
+                              cfgs.model.sub_sampling_ratio)
+    counted = kernels()
+    reset_counts(counted)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    steps, all_held = [], True
+    for s in range(int(fx["steps"])):
+        out = train_step(model, opt, cfgs, arrays, gen, int(fx["steps_per_epoch"]))
+        want_idx = fx[f"step{s}_pred_idx"].astype(np.int64)
+        held = _held(out["pred_idx"].cpu().numpy(), want_idx)
+        if not all_held:                  # an earlier step left the reference
+            held = 0
+        all_held &= held == len(want_idx)
+        rec = {"loss": float(out["loss"]), "jax_loss": float(fx[f"step{s}_loss"]),
+               "lr": out["lr"], "jax_lr": float(fx[f"step{s}_lr"]), "skipped": out["skipped"],
+               "held_iterations": held, "rows_differ": int((out["pred_idx"].cpu().numpy()
+                                                           != want_idx).sum())}
+        if s == 0 and held == 0:
+            raise AssertionError("train parity: step 1 iteration-1 matches differ from JAX")
+        if out["skipped"] != bool(fx[f"step{s}_skipped"]) or abs(rec["lr"] - rec["jax_lr"]) > 1e-9:
+            raise AssertionError(f"train parity step {s + 1}: {rec}")
+        errs = {}
+        for key, value in out["losses"].items():
+            if int(key[key.rfind("_") + 1:]) >= held:
+                continue
+            want = float(fx[f"step{s}_term/{key}"])
+            errs[key] = abs(float(value) - want) / max(abs(want), 1e-12)
+        if all_held:
+            errs["total"] = abs(rec["loss"] - rec["jax_loss"]) / abs(rec["jax_loss"])
+        rec["term_rel_err"] = errs
+        if any(e > terms_rtol for e in errs.values()):
+            raise AssertionError(f"train parity step {s + 1}: loss terms {errs}")
+        if s == 0 and all_held:
+            grads = flax_leaves(out["grads"])
+            want = stored_leaves(fx, "grad0")
+            if set(grads) != set(want):
+                raise AssertionError("train parity: grad leaves differ from the fixture's")
+            rec["grad_rel_err"] = max(leaf_error(grads[k], want[k]) for k in want)
+            if rec["grad_rel_err"] > leaf_rtol:
+                raise AssertionError(f"train parity: grads differ by {rec['grad_rel_err']}")
+        steps.append(rec)
+    record = {"points": int(fx["points_src"].shape[1]), "pairs": int(fx["points_src"].shape[0]),
+              "resumed_count": count, "steps": steps, "all_held": bool(all_held)}
+    if all_held:
+        params = flax_leaves(dict(model.inlier_model.named_parameters()))
+        want = stored_leaves(fx, f"param{int(fx['steps'])}")
+        record["param_rel_err"] = max(leaf_error(params[k], want[k]) for k in want)
+        if record["param_rel_err"] > leaf_rtol:
+            raise AssertionError(f"train parity: params differ by {record['param_rel_err']}")
+    launches, _ = read_counts(counted)
+    record["launches"] = launches
+    log(f"train parity {record['points']} points, {record['pairs']} pairs, resumed at count "
+        f"{count}: " + "; ".join(f"step {i + 1} loss {r['loss']:.6f} (JAX {r['jax_loss']:.6f}), "
+                                 f"held {r['held_iterations']} iterations"
+                                 for i, r in enumerate(steps))
+        + f"; grads {steps[0].get('grad_rel_err')}, params {record.get('param_rel_err')} "
+        f"relative; launches {launches}")
+    return launches, record
+
+
+def train_arrays(rng, batch: int):
+    """make_arrays' source clouds, each with a reference that is a known
+    rigid motion of it (rotation up to 30 degrees about a random axis,
+    translation up to 1) plus Gaussian noise of 0.02, rows reshuffled."""
+    arrays = make_arrays(rng, batch)
+    src = arrays["points_src"]
+    ref = np.empty_like(src)
+    gt = np.empty((batch, 3, 4), np.float32)
+    for b in range(batch):
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+        ang = np.deg2rad(rng.uniform(0.0, 30.0))
+        rot = np.eye(3) + np.sin(ang) * k + (1 - np.cos(ang)) * k @ k
+        t = rng.uniform(-1.0, 1.0, size=3) / np.sqrt(3.0)
+        moved = src[b].copy()
+        moved[:, :3] = src[b, :, :3] @ rot.T + t + rng.normal(scale=0.02, size=(len(moved), 3))
+        ref[b] = moved[rng.permutation(len(moved))]
+        gt[b] = np.concatenate([rot, t[:, None]], axis=1)
+    return {"points_src": src, "points_ref": ref, "transform_gt": gt}
+
+
+def _grads_agree(got, want, tol):
+    """Largest per-leaf max-abs difference over the leaf's max-abs."""
+    err = 0.0
+    for name, g in got.items():
+        w = want[name]
+        err = max(err, float((g - w).abs().max() / w.abs().max().clamp_min(1e-30)))
+    if err > tol:
+        raise AssertionError(f"train: kernel grads differ from the plain version's by {err}")
+    return err
+
+
+def _iteration1_descriptors(torch, model, batch):
+    """The source and reference descriptors of the first registration
+    iteration (the source at its input pose), as the forward computes them."""
+    with torch.no_grad():
+        feat_src, logits_src, feat_ref, logits_ref = model.backbone_pair(batch)
+        score_src, score_ref = model.score_pair(batch, feat_src, feat_ref, logits_src,
+                                                logits_ref)
+        fr = model.aggregate_side(batch.points_ref[..., :3], feat_ref, score_ref)
+        fs = model.aggregate_moving(batch.points_src[..., :3], score_src,
+                                    model.mlp_feat(feat_src))
+    return fs, fr
+
+
+def _fp32_near_ties(torch, qry, cand, idx, pidx):
+    """Rows where the kernel's match `idx` into `cand` differs from the plain
+    version's `pidx` must be near ties of the fp32 search: at most 0.1% of
+    rows, and the float64 distances of the two candidates within 1e-5 of
+    |q|^2 + |c|^2, the scale of the terms both versions sum in fp32 (a
+    descriptor's nearest neighbour may be far closer than that scale, so a
+    gap relative to the distance itself measures fp32 rounding wrongly
+    there). Returns the rows, the largest gap and the largest gap over the
+    distance."""
+    differ = idx != pidx
+    rows = int(differ.sum())
+    if not rows:
+        return {"rows": 0, "max_gap": 0.0, "max_gap_over_distance": 0.0}
+    q = qry.double()
+
+    def dist(i):
+        c = torch.gather(cand.double(), 1, i[..., None].expand(q.shape))
+        return ((q - c) ** 2).sum(-1), (q * q).sum(-1) + (c * c).sum(-1)
+    (d_k, s_k), (d_p, _) = dist(idx), dist(pidx)
+    gap = (d_k - d_p).abs()[differ]
+    scale = s_k[differ]
+    rec = {"rows": rows, "max_gap": float(gap.max()), "max_gap_over_scale": float((gap / scale).max()),
+           "max_gap_over_distance": float((gap / d_p[differ].clamp_min(1e-12)).max())}
+    if rows > 1e-3 * idx.numel() or rec["max_gap_over_scale"] > 1e-5:
+        raise AssertionError(f"train iteration 1: matches differ beyond fp32 near ties: {rec}")
+    return rec
+
+
+def _step_against_plain(torch, model, cfgs, arrays, dev, seed, require_held):
+    """One training forward + backward with the kernels and again with every
+    kernel swapped for its plain version, from the same params and dropout
+    generator state. The pyramids must be equal, and the first iteration's
+    matches equal but for near ties (the K2 rule on the step's own
+    descriptors); the loss terms of the iterations whose matches all agree
+    within 1e-4 relative, and with every iteration held the total within
+    1e-4 and the inlier grads within 1e-3 of each leaf's scale.
+    `require_held`: fail unless every iteration holds. Returns the record."""
+    from deepsir_tpu_torch.training import compute_loss, device_batch
+    runs = []
+    for plain in (False, True):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        with plain_kernels() if plain else nullcontext():
+            batch = device_batch(cfgs.model, arrays, device=dev)
+            model.zero_grad(set_to_none=True)
+            loss, aux = compute_loss(model, cfgs.loss, batch, gen)
+            loss.backward()
+        runs.append((batch, loss.item(), {k: v.item() for k, v in aux["losses"].items()},
+                     aux["pred_idx"], {n: p.grad.clone()
+                                       for n, p in model.inlier_model.named_parameters()}))
+    model.zero_grad(set_to_none=True)
+    (k_batch, k_loss, k_terms, k_idx, k_grads), (p_batch, p_loss, p_terms, p_idx, p_grads) = runs
+    for side in ("src", "ref"):
+        for a, b in zip(getattr(k_batch, f"pyramid_{side}").neigh_idx,
+                        getattr(p_batch, f"pyramid_{side}").neigh_idx):
+            if not torch.equal(a, b):
+                raise AssertionError(f"train: the {side} pyramid differs from the plain KNN's")
+    gap = _fp32_near_ties(torch, *_iteration1_descriptors(torch, model, k_batch), k_idx[0],
+                          p_idx[0])
+    k_idx, p_idx = k_idx.cpu().numpy(), p_idx.cpu().numpy()
+    held = _held(k_idx, p_idx)
+    rec = {"loss": k_loss, "plain_loss": p_loss, "held_iterations": held,
+           "rows_differ": (k_idx != p_idx).sum(-1).tolist(), "iteration1_gap": gap}
+    errs = {k: abs(v - p_terms[k]) / max(abs(p_terms[k]), 1e-12) for k, v in k_terms.items()
+            if int(k[k.rfind("_") + 1:]) < held}
+    if held == len(p_idx):
+        errs["total"] = abs(k_loss - p_loss) / abs(p_loss)
+        rec["grad_rel_err"] = _grads_agree(k_grads, p_grads, 1e-3)
+    elif require_held:
+        raise AssertionError(f"train: matches differ from the plain version's: "
+                             f"{rec['rows_differ']}")
+    rec["term_rel_err"] = errs
+    if any(e > 1e-4 for e in errs.values()):
+        raise AssertionError(f"train: kernel loss terms differ from the plain version's: {errs}")
+    return rec
+
+
+def train_trained_against_plain(torch, dev):
+    """The staged align checkpoint (its run config, dropout 0.5 from a seeded
+    generator) at full width on the checkpoint fixture's two 18000-point
+    pairs: one training step with the kernels against the plain versions,
+    every iteration held (the checkpoint phase holds its first two
+    iterations there)."""
+    from deepsir_tpu_torch.config import read_run_config, replace
+    from deepsir_tpu_torch.models.network import Network
+    from deepsir_tpu_torch.utils.params import from_jax_params
+    from deepsir_tpu_torch.utils.checkpoint import read_params
+    cfgs = read_run_config(CKPT_RUN)
+    cfgs = cfgs._replace(model=replace(cfgs.model, num_points=N_POINTS))
+    model = Network(cfgs.model)
+    model.load_state_dict(from_jax_params(read_params(CKPT_RUN / "ckpt"), model))
+    model.to(dev)
+    arrays = checkpoint_arrays(dict(np.load(CKPT_FIXTURE)), N_POINTS)
+    rec = _step_against_plain(torch, model, cfgs, arrays, dev, seed=2, require_held=True)
+    log(f"train step of the staged checkpoint at {N_POINTS} points, "
+        f"{len(arrays['points_src'])} pairs, against plain: {rec}")
+    return rec
+
+
+def train_full_width(torch, dev, name: str):
+    """TRAIN_STEPS training steps at full width (N_POINTS, feat_len 4, B=1,
+    2 registration iterations, dropout 0.5 from a seeded CUDA generator,
+    seeded weights) along one case: the launch counts, every step finite
+    and applied, frozen params bit-identical and inlier params changed; one
+    step against its plain version. Returns (launches, record)."""
+    from deepsir_tpu_torch.training import train_step
+    options, per_step = TRAIN_CASES[name]
+    cfgs, model, opt = seeded_training(dev, name)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(0)
+    feeds = [train_arrays(rng, 1) for _ in range(TRAIN_STEPS)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    counted = kernels()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    reset_counts(counted)
+    losses, times = [], []
+    for arrays in feeds:
+        t0 = time.perf_counter()
+        out = train_step(model, opt, cfgs, arrays, gen, steps_per_epoch=1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if out["skipped"] or not np.isfinite(float(out["loss"])):
+            raise AssertionError(f"train {name}: step skipped or not finite: {out['loss']}")
+        losses.append({"total": float(out["loss"]),
+                       **{k: float(v) for k, v in out["losses"].items()}})
+    launches, _ = read_counts(counted)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = dict(zip(COUNTED, (n * TRAIN_STEPS for n in per_step)))
+    if launches != want:
+        raise AssertionError(f"train {name}: launches {launches}, expected {want}")
+    changed = False
+    for key, value in model.state_dict().items():
+        if key.startswith("inlier_model."):
+            changed |= not torch.equal(value, before[key])
+        elif not torch.equal(value, before[key]):
+            raise AssertionError(f"train {name}: frozen parameter {key} changed")
+    if not changed:
+        raise AssertionError(f"train {name}: no inlier parameter changed")
+    vs_plain = _step_against_plain(torch, model, cfgs, feeds[0], dev, seed=1,
+                                   require_held=False)
+    record = {"case": name, "points": N_POINTS, "batch": 1, "steps": TRAIN_STEPS,
+              "ms_per_step": float(np.median(times[1:])), "step_ms": times,
+              "max_memory_allocated": int(peak), "losses": losses, "launches": launches,
+              "vs_plain": vs_plain, "options": options}
+    log(f"train {name} at {N_POINTS} points: {record['ms_per_step']:.3f} ms per step (median "
+        f"of {TRAIN_STEPS - 1} after a warm-up; {[round(t, 3) for t in times]}), peak "
+        f"{peak / 2**30:.3f} GiB, loss {[round(x['total'], 5) for x in losses]}, launches "
+        f"{launches}; against plain: {vs_plain}")
+    return launches, record, model, opt
+
+
+def check_train(torch, dev):
+    """The "train" phase: parity with JAX on trained weights, the full-width
+    cases, and a checkpoint round trip. Returns (launches, record)."""
+    import tempfile
+    from deepsir_tpu_torch.models.network import Network
+    from deepsir_tpu_torch.training import make_optimizer
+    from deepsir_tpu_torch.utils.checkpoint import load_train_state, save_checkpoint
+    total = dict.fromkeys(COUNTED, 0)
+    launches, record = train_parity(torch, dev)
+    record = {"parity": record}
+    for key, n in launches.items():
+        total[key] += n
+    for name in TRAIN_CASES:
+        launches, record[name], model, opt = train_full_width(torch, dev, name)
+        for key, n in launches.items():
+            total[key] += n
+    record["trained_vs_plain"] = train_trained_against_plain(torch, dev)
+    # round trip of the last case's model and Adam state
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_checkpoint(Path(tmp) / "model_4.msgpack", model, opt, TRAIN_STEPS)
+        fresh = Network(model.cfg).to(dev)
+        fresh_opt = make_optimizer(fresh)
+        step = load_train_state(path, fresh, fresh_opt)
+        size = path.stat().st_size
+    equal = step == TRAIN_STEPS and all(
+        torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                          fresh.state_dict().values()))
+    for p, q in zip(model.inlier_model.parameters(), fresh.inlier_model.parameters()):
+        a, b = opt.state[p], fresh_opt.state[q]
+        equal &= all(torch.equal(a[k].to(b[k].device), b[k])
+                     for k in ("exp_avg", "exp_avg_sq", "step"))
+    if not equal:
+        raise AssertionError("train: the checkpoint round trip is not bit-equal")
+    record["round_trip"] = {"bytes": size, "step": step, "bit_equal": True}
+    log(f"train checkpoint round trip: {size} bytes, params, moments and count bit-equal")
+    return total, record
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1078,8 +1508,13 @@ def main() -> int:
         launches, ckpt = check_checkpoint(torch, dev)
         for key, n in launches.items():
             total[key] += n
+    with phase("train"):
+        launches, train = check_train(torch, dev)
+        for key, n in launches.items():
+            total[key] += n
     log(json.dumps({"paths": paths}))
     log(json.dumps({"checkpoint": ckpt}))
+    log(json.dumps({"train": train}))
     for entry, key in zip((k1, k4, k2, k3), COUNTED):
         entry["launches"] = total[key]
     for entry, key in zip((k2, k3), LP_COUNTED):

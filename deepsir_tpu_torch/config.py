@@ -1,11 +1,14 @@
-"""Model configuration for the port.
+"""Model, loss and training configuration for the port.
 
 A copy of the `ModelConfig` fields of deepsir_tpu/config.py:32-181 that the
-align inference forward reads, with the same names and defaults. The port
-implements one slice of that configuration space (`check_supported`); any
-other value of an option raises `NotImplementedError` naming the option
-instead of silently taking another path. `from_run_config` reads the
-`config.json` a training run writes beside its checkpoints.
+align forward and its training step read, of `LossConfig` and of the
+`TrainConfig` fields the training step reads, with the same names and
+defaults. The port implements one slice of the model configuration space
+(`check_supported`); any other value of an option raises
+`NotImplementedError` naming the option instead of silently taking another
+path. `from_run_config` reads the model block of the `config.json` a
+training run writes beside its checkpoints, `read_run_config` its model,
+loss and training blocks.
 
 Precision: the port computes at fp32 grade whatever the precision fields
 say: fp32 torch matmuls with TF32 off (deepsir_tpu_torch/__init__.py), and
@@ -21,7 +24,7 @@ import json
 import os
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Mapping, Tuple, Union
+from typing import Mapping, NamedTuple, Tuple, Union
 
 
 @dataclass(frozen=True)
@@ -35,6 +38,7 @@ class ModelConfig:
     d_out: Tuple[int, ...] = (16, 64, 128, 256)   # encoder dims per layer
     out_feat_dim: int = 64            # descriptor dimension
     num_classes: int = 19             # SemanticKITTI valid classes
+    dropout_rate: float = 0.5         # before fc_label, in training only
     fc_norm: str = "group"            # 'group' | 'batch' | 'none'
     randla_skips: str = "pre"         # 'pre' | 'post'
     compute_dtype: str = "float32"
@@ -49,6 +53,7 @@ class ModelConfig:
     refine_stride: int = 1
     pyramid_order: str = "shuffled"   # 'shuffled' | 'morton'
     knn_window_halo: int = 1          # window blocks per side (morton only)
+    num_train_reg_iter: int = 2       # registration iterations of a training step
     num_reg_iter: int = 5
     clip_weight_thresh: float = 0.0
     absolute_pose_solve: bool = False
@@ -67,19 +72,90 @@ _SLICE = {
     "matmul_precision": "highest",
 }
 
-# keys of a run's "model" block that cannot change the align inference
-# forward, with the reason; `from_run_config` drops them
+# keys of a run's "model" block that cannot change the align forward or its
+# training step, with the reason; `from_run_config` drops them
 IGNORED_KEYS = {
     "num_sub": "only forward_pair reads it (deepsir_tpu/models/network.py:272), "
                "not the align forward",
-    "dropout_rate": "dropout acts in training only (deepsir_tpu/models/randla.py:185)",
     "knn_recall_target": "the port's KNN is exact, and so is JAX's on the CPU "
                          "(deepsir_tpu/config.py:61)",
     "matcher_method": "it picks Pallas or XLA for the same function "
                       "(deepsir_tpu/ops/distance.py:106)",
-    "num_train_reg_iter": "training only (deepsir_tpu/training.py:87)",
     "no_slack": "nothing in deepsir_tpu/ reads it outside config.py",
     "num_sk_iter": "nothing in deepsir_tpu/ reads it outside config.py",
+}
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """Loss weights (deepsir_tpu/config.py:LossConfig); the align loss reads
+    loss_type, the three wt_* weights, loss_discount_factor and thres_radius."""
+    loss_type: str = "mae"            # 'mae' | 'mse'
+    wt_ptDist_loss: float = 1.0
+    wt_inlier_loss: float = 1.0
+    wt_pose_loss: float = 0.0
+    loss_discount_factor: float = 0.5
+    det_loss_weight: float = 1.0
+    chamfer_loss_weight: float = 0.0
+    feat_loss_weight: float = 0.0
+    thres_radius: float = -1.0        # <= 0: voxel_size * positive_pair_radius_multiplier
+    circle_loss_tile: int = 0
+    overlap_det_mask: bool = False
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The fields of deepsir_tpu/config.py:TrainConfig that the training
+    step reads: the learning-rate schedule, the batch size and the seed."""
+    lr: float = 1e-3
+    lr_decay_epoch: int = 4
+    lr_decay_ratio: float = 0.98
+    lr_clip: float = 1e-4
+    batch_size: int = 1
+    seed: int = 0
+
+
+class RunConfig(NamedTuple):
+    """What the align training step reads of a run's config.json."""
+    model: ModelConfig
+    loss: LossConfig
+    train: TrainConfig
+
+
+# keys of a run's "data" and "train" blocks that the training step does not
+# read, with the reason; `read_run_config` drops them
+DATA_READ = ("voxel_size", "positive_pair_radius_multiplier")
+IGNORED_DATA_KEYS = {
+    "dataset_path": "the data layer is not ported",
+    "dataset_type": "it picks the data layer's reader; the stored config is "
+                    "the resolved one, whose voxel_size is already the dataset's",
+    "rot_mag": "an augmentation of the data layer (not ported)",
+    "xy_rot_scale": "an augmentation of the data layer (not ported)",
+    "trans_mag": "an augmentation of the data layer (not ported)",
+    "num_val": "the validation subset of train.py (not ported)",
+    "num_workers": "host loader workers (not ported)",
+    "max_matches": "the capacity of the data layer's match lists; the step "
+                   "reads the lists' shape",
+    "gt_match_lists": "the data layer ships `matches` only under it; the step "
+                      "takes the list BCE exactly when the batch has them",
+    "oxford_pose_refine": "a reader option of the data layer (not ported)",
+    "synthetic_train_size": "the synthetic split's size; the caller passes "
+                            "steps_per_epoch",
+    "synthetic_eval_size": "the synthetic eval split (not ported)",
+    "synthetic_noise": "the synthetic generator (not ported)",
+    "synthetic_p_keep": "the synthetic generator (not ported)",
+    "synthetic_eval_offset": "the synthetic eval split (not ported)",
+}
+IGNORED_TRAIN_KEYS = {
+    "summary_every": "logging cadence of train.py (not ported)",
+    "validate_every": "validation cadence of train.py (not ported)",
+    "rte_thresh": "the validation's success threshold (not ported)",
+    "rre_thresh": "the validation's success threshold (not ported)",
+    "resume": "train.py's checkpoint path; the caller loads it with "
+              "utils.checkpoint.load_train_state",
+    "load_model_all": "train.py's restore mode (not ported)",
+    "max_epochs": "train.py's loop length (not ported)",
+    "data_parallel": "the multi-device paths (not ported)",
 }
 
 
@@ -130,6 +206,8 @@ def check_supported(cfg: ModelConfig) -> None:
         raise _unported("fc_norm", cfg.fc_norm, "'group' and 'none'")
     if cfg.randla_skips not in ("pre", "post"):
         raise _unported("randla_skips", cfg.randla_skips, "'pre' and 'post'")
+    if not 0.0 <= cfg.dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate={cfg.dropout_rate} outside [0, 1)")
     if len(cfg.sub_sampling_ratio) != len(cfg.d_out):
         raise ValueError("sub_sampling_ratio and d_out differ in length")
 
@@ -138,14 +216,30 @@ def replace(obj, **kw):
     return dataclasses.replace(obj, **kw)
 
 
-def _config_from_fields(fields: Mapping) -> ModelConfig:
-    return ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
-                          for k, v in fields.items()})
+def _read_run(run: Union[str, os.PathLike, Mapping]) -> Mapping:
+    if not isinstance(run, Mapping):
+        path = Path(run)
+        run = json.loads((path / "config.json" if path.is_dir() else path).read_text())
+    if run.get("pipeline") != "align":
+        raise ValueError(f"run config of pipeline {run.get('pipeline')!r}; "
+                         f"only 'align' is ported")
+    return run
+
+
+def _known_fields(block: Mapping, cls, ignored, what: str) -> dict:
+    """The entries of `block` that are fields of `cls`; a key neither a field
+    nor in `ignored` raises ValueError naming it."""
+    known = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(block) - known - set(ignored))
+    if unknown:
+        raise ValueError(f"run config {what} keys {unknown} are not known to the port")
+    return {k: tuple(v) if isinstance(v, list) else v
+            for k, v in block.items() if k in known}
 
 
 def from_json(text: str) -> ModelConfig:
     """ModelConfig from a JSON object of its fields (lists become tuples)."""
-    return _config_from_fields(json.loads(text))
+    return ModelConfig(**_known_fields(json.loads(text), ModelConfig, (), "model"))
 
 
 def from_run_config(run: Union[str, os.PathLike, Mapping]) -> ModelConfig:
@@ -157,17 +251,33 @@ def from_run_config(run: Union[str, os.PathLike, Mapping]) -> ModelConfig:
     dropped; any other unknown key raises ValueError naming it, as does a
     run of another pipeline. The result passes `check_supported`.
     """
-    if not isinstance(run, Mapping):
-        path = Path(run)
-        run = json.loads((path / "config.json" if path.is_dir() else path).read_text())
-    if run.get("pipeline") != "align":
-        raise ValueError(f"run config of pipeline {run.get('pipeline')!r}; "
-                         f"only 'align' is ported")
-    known = {f.name for f in dataclasses.fields(ModelConfig)}
-    model = run["model"]
-    unknown = sorted(set(model) - known - set(IGNORED_KEYS))
-    if unknown:
-        raise ValueError(f"run config model keys {unknown} are not known to the port")
-    cfg = _config_from_fields({k: v for k, v in model.items() if k in known})
+    run = _read_run(run)
+    cfg = ModelConfig(**_known_fields(run["model"], ModelConfig, IGNORED_KEYS, "model"))
     check_supported(cfg)
     return cfg
+
+
+def read_run_config(run: Union[str, os.PathLike, Mapping]) -> RunConfig:
+    """The model, loss and training configs of a training run's `config.json`
+    (`run` as for `from_run_config`).
+
+    The "loss" block maps onto LossConfig and the "train" block onto
+    TrainConfig, both field for field; of the "data" block only DATA_READ is
+    read. A thres_radius <= 0 is filled as the JAX package's
+    `Config.resolved` fills it: voxel_size * positive_pair_radius_multiplier.
+    Keys in IGNORED_DATA_KEYS and IGNORED_TRAIN_KEYS are dropped; any other
+    unknown key raises ValueError naming it.
+    """
+    run = _read_run(run)
+    loss = LossConfig(**_known_fields(run.get("loss", {}), LossConfig, (), "loss"))
+    train = TrainConfig(**_known_fields(run.get("train", {}), TrainConfig,
+                                        IGNORED_TRAIN_KEYS, "train"))
+    data = run.get("data", {})
+    unknown = sorted(set(data) - set(DATA_READ) - set(IGNORED_DATA_KEYS))
+    if unknown:
+        raise ValueError(f"run config data keys {unknown} are not known to the port")
+    if loss.thres_radius <= 0:
+        # deepsir_tpu/config.py:DataConfig defaults
+        radius = data.get("voxel_size", 0.3) * data.get("positive_pair_radius_multiplier", 3.0)
+        loss = replace(loss, thres_radius=radius)
+    return RunConfig(from_run_config(run), loss, train)

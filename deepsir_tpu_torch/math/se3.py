@@ -48,3 +48,20 @@ def pose_error(g_gt: torch.Tensor, g_pred: torch.Tensor, eps: float = 1e-16):
     err_r_deg = torch.arccos(cos) * (180.0 / math.pi)
     err_t = torch.linalg.vector_norm(residual[..., :, 3], dim=-1)
     return err_r_deg, err_t
+
+
+def rotation_error_rad(r1: torch.Tensor, r2: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Geodesic rotation error arccos((tr(R1^T R2) - 1) / 2) in radians,
+    (..., 3, 3) x (..., 3, 3) -> (...) (deepsir_tpu/math/se3.py:66). The
+    clip at 1 - 1e-6, which fp32 resolves, keeps the gradient finite at zero
+    error; the pose loss differentiates it."""
+    trace = torch.sum(r1 * r2, dim=(-2, -1))
+    cos = torch.clamp((trace - 1.0) * 0.5, -1.0 + eps, 1.0 - eps)
+    return torch.arccos(cos)
+
+
+def translation_error(t1: torch.Tensor, t2: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """L2 translation error (..., 3) -> (...) as sqrt(|d|^2 + eps), whose
+    gradient is finite at zero (deepsir_tpu/math/se3.py:81)."""
+    d = t1 - t2
+    return torch.sqrt(torch.sum(d * d, dim=-1) + eps)

@@ -1,4 +1,5 @@
-"""The align network (deepsir_tpu/models/network.py), inference forward.
+"""The align network (deepsir_tpu/models/network.py): its forward, for
+inference and for training.
 
 One module owns the RandLA feature extractor, the aggregation MLPs and the
 inlier RandLA. `forward_align` runs the backbone over both clouds, scores
@@ -12,6 +13,12 @@ ref descriptor, the inlier net's LocSE cache and mlp_feat of the source
 features are computed once, outside the loop. With
 `ForwardOptions.refine_stride` > 1 iterations 2.. run on every stride-th
 source point, over a second pyramid built inside the forward.
+
+Training (`forward_align(..., train=True)`) differentiates only what the
+reference's stop_gradients let through: the inlier net (its LocSE cache
+included), the Kabsch solves and the composed poses. The backbone, the
+scores, the descriptors, the searches and the inlier net's input channels
+are computed without a graph.
 """
 from __future__ import annotations
 
@@ -44,6 +51,9 @@ class PairBatch(NamedTuple):
     # point, 0.0 padding; None: all real). The forward reads only mask_src.
     mask_src: Optional[torch.Tensor] = None    # (B, N) float32
     mask_ref: Optional[torch.Tensor] = None
+    # ground-truth (src, ref) match lists padded with -1, for the list BCE
+    matches: Optional[torch.Tensor] = None     # (B, M_cap, 2) int32
+    num_matches: Optional[torch.Tensor] = None  # (B,) int32
 
 
 class AlignOutput(NamedTuple):
@@ -138,11 +148,25 @@ class Network(nn.Module):
         pyr = slice_neighbours(pyramid, self.cfg.inlier_num_knn)
         return _Source(xyz0, score, ff, pyr, self.inlier_model.pos_cache(pyr), mask)
 
-    @torch.no_grad()
-    def forward_align(self, batch: PairBatch, opts: ForwardOptions) -> AlignOutput:
-        """Iterative registration, inference only."""
+    def forward_align(self, batch: PairBatch, opts: ForwardOptions, train: bool = False,
+                      generator: Optional[torch.Generator] = None) -> AlignOutput:
+        """Iterative registration.
+
+        With train=False (inference) nothing keeps a graph. With train=True
+        the inlier net runs its dropout from `generator` (a fresh mask each
+        iteration), `refine_stride` is ignored, and the outputs' graph
+        reaches the inlier net's parameters only (through the logits and the
+        transforms).
+        """
+        if not train:
+            with torch.no_grad():
+                return self._forward_align(batch, opts, False, None)
+        return self._forward_align(batch, opts, True, generator)
+
+    def _forward_align(self, batch: PairBatch, opts: ForwardOptions, train: bool,
+                       generator: Optional[torch.Generator]) -> AlignOutput:
         cfg = self.cfg
-        stride = opts.refine_stride
+        stride = 1 if train else opts.refine_stride
         refine = stride > 1 and opts.num_iter > 1
         xyz_src0 = batch.points_src[..., :3]
         if refine:
@@ -152,15 +176,16 @@ class Network(nn.Module):
             if n_bottom < 1:
                 raise ValueError(f"refine_stride={stride} leaves too few points for the "
                                  f"inlier pyramid (ratios {cfg.sub_sampling_ratio})")
-        feat_src0, logits_src, feat_ref0, logits_ref = self.backbone_pair(batch)
         xyz_ref = batch.points_ref[..., :3].contiguous()
-        score_src, score_ref = self.score_pair(batch, feat_src0, feat_ref0,
-                                               logits_src, logits_ref)
-
-        # loop-invariant: the ref descriptor, the inlier LocSE cache and
-        # mlp_feat of the source features
-        fr = self.aggregate_side(xyz_ref, feat_ref0, score_ref)
-        ff_src = self.mlp_feat(feat_src0)
+        with torch.no_grad():
+            # frozen in align training: backbone, scores and descriptors
+            feat_src0, logits_src, feat_ref0, logits_ref = self.backbone_pair(batch)
+            score_src, score_ref = self.score_pair(batch, feat_src0, feat_ref0,
+                                                   logits_src, logits_ref)
+            # loop-invariant: the ref descriptor and mlp_feat of the source
+            # features; the inlier LocSE cache (below) keeps its graph
+            fr = self.aggregate_side(xyz_ref, feat_ref0, score_ref)
+            ff_src = self.mlp_feat(feat_src0)
         full = self._source(xyz_src0, score_src, ff_src, batch.pyramid_src, batch.mask_src)
 
         b = xyz_src0.shape[0]
@@ -168,7 +193,7 @@ class Network(nn.Module):
         invalid = torch.zeros(b, dtype=torch.bool, device=xyz_src0.device)
         _, cum, invalid, transforms, logits, idx = self._iterate(
             full, fr, xyz_ref, xyz_src0, cum, invalid,
-            1 if refine else opts.num_iter, opts.clip_weight)
+            1 if refine else opts.num_iter, opts.clip_weight, train, generator)
         src = full
         if refine:
             # iteration 1 ran on every point; the rest run on the strided
@@ -189,7 +214,8 @@ class Network(nn.Module):
             pt_src=src.xyz0, pt_ref=xyz_ref, score_src=score_src, score_ref=score_ref)
 
     def _iterate(self, src: _Source, fr, xyz_ref, xyz_src, cum, invalid, num_iter: int,
-                 clip_weight: bool):
+                 clip_weight: bool, train: bool = False,
+                 generator: Optional[torch.Generator] = None):
         """`num_iter` registration iterations over `src` from the pose
         (xyz_src, cum); returns the last (xyz_src, cum, invalid) and the
         per-iteration cumulative transforms, inlier logits and matches."""
@@ -197,25 +223,28 @@ class Network(nn.Module):
         need_ridx = cfg.mutual_check or "recip" in self.extras
         transforms, logits_iters, idx_iters = [], [], []
         for _ in range(num_iter):
-            fs = self.aggregate_moving(xyz_src, src.score, src.ff)
-            if need_ridx:
-                idx, ridx = nearest_neighbour_bidirectional(fs, fr)     # (B, N), (B, M)
-            else:
-                idx = nearest_neighbour_index(fs, fr)                   # (B, N)
-            xyz_ref_new = gather_points(xyz_ref, idx)
-            # the extra channels stack as [dist, recip] whatever the order of
-            # the config string, as the reference stacks them
-            feats = [xyz_src, xyz_ref_new]
-            if "dist" in self.extras:
-                feats.append(torch.linalg.vector_norm(
-                    fs - gather_points(fr, idx), dim=-1, keepdim=True))
-            if "recip" in self.extras:
-                # |src_i - src[reverse(idx_i)]| in untransformed coordinates
-                back = gather_points(src.xyz0, ridx)                    # (B, M, 3)
-                feats.append(torch.linalg.vector_norm(
-                    gather_points(back, idx) - src.xyz0, dim=-1, keepdim=True))
-            pair_feats = torch.cat(feats, dim=-1)
-            _, logit = self.inlier_model(pair_feats, src.pyramid, pos_cache=src.pos)
+            with torch.no_grad():
+                # the inlier net's inputs carry no gradient
+                fs = self.aggregate_moving(xyz_src, src.score, src.ff)
+                if need_ridx:
+                    idx, ridx = nearest_neighbour_bidirectional(fs, fr)     # (B, N), (B, M)
+                else:
+                    idx = nearest_neighbour_index(fs, fr)                   # (B, N)
+                xyz_ref_new = gather_points(xyz_ref, idx)
+                # the extra channels stack as [dist, recip] whatever the order
+                # of the config string, as the reference stacks them
+                feats = [xyz_src, xyz_ref_new]
+                if "dist" in self.extras:
+                    feats.append(torch.linalg.vector_norm(
+                        fs - gather_points(fr, idx), dim=-1, keepdim=True))
+                if "recip" in self.extras:
+                    # |src_i - src[reverse(idx_i)]| in untransformed coordinates
+                    back = gather_points(src.xyz0, ridx)                    # (B, M, 3)
+                    feats.append(torch.linalg.vector_norm(
+                        gather_points(back, idx) - src.xyz0, dim=-1, keepdim=True))
+                pair_feats = torch.cat(feats, dim=-1)
+            _, logit = self.inlier_model(pair_feats, src.pyramid, pos_cache=src.pos,
+                                         train=train, generator=generator)
             logit = logit[..., 0]
             weights = torch.sigmoid(logit)
             if clip_weight and cfg.clip_weight_thresh > 0:
@@ -230,10 +259,10 @@ class Network(nn.Module):
             if cfg.absolute_pose_solve:
                 # the untransformed source straight onto the matched refs
                 cum, bad = weighted_kabsch(src.xyz0, xyz_ref_new, weights)
-                xyz_src = se3.transform(cum, src.xyz0)
+                xyz_src = se3.transform(cum.detach(), src.xyz0)
             else:
                 r_t, bad = weighted_kabsch(xyz_src, xyz_ref_new, weights)
-                xyz_src = se3.transform(r_t, xyz_src)
+                xyz_src = se3.transform(r_t.detach(), xyz_src)
                 cum = se3.concatenate(r_t, cum)
             invalid = invalid | bad
             transforms.append(cum)

@@ -7,7 +7,10 @@ l-1. A network built from a truncated config (`d_out[:L]`) reads only the
 first L levels of a deeper pyramid. The LocSE
 positional branch is exposed as `pos_cache` so a caller that runs the same
 network over the same pyramid repeatedly (the registration loop) computes it
-once. Dropout is a no-op at inference and is not modelled.
+once. In training (`train=True`) dropout at `cfg.dropout_rate` acts on the
+output features before `fc_label`, as flax's `nn.Dropout` does: a kept
+entry is scaled by 1 / keep, the keep mask drawn from the caller's
+`torch.Generator`.
 """
 from __future__ import annotations
 
@@ -107,14 +110,27 @@ class RandLA(nn.Module):
         self.mlp_out = nn.Linear(x_ch, cfg.out_feat_dim, bias=False)
         self.fc_label = MLP(cfg.out_feat_dim, (cfg.out_feat_dim, 32, num_classes),
                             norm=cfg.fc_norm)
+        self.dropout_rate = cfg.dropout_rate
 
     def pos_cache(self, pyr: Pyramid) -> Tuple[PosEnc, ...]:
         """Per-encoder-level LocSE projections (loop-invariant)."""
         return tuple(enc.pos_encode(pyr.xyz[i], pyr.neigh_idx[i])
                      for i, enc in enumerate(self.enc))
 
+    def dropout(self, feat: torch.Tensor, generator: Optional[torch.Generator]):
+        """flax `nn.Dropout` in training: each entry kept with probability
+        1 - rate and then scaled by 1 / (1 - rate), else zeroed; the keep
+        mask, of feat's shape, comes from `generator` (on feat's device)."""
+        if self.dropout_rate == 0.0:
+            return feat
+        keep = 1.0 - self.dropout_rate
+        draw = torch.rand(feat.shape, generator=generator, device=feat.device,
+                          dtype=feat.dtype)
+        return torch.where(draw < keep, feat / keep, torch.zeros_like(feat))
+
     def forward(self, features: torch.Tensor, pyr: Pyramid,
-                pos_cache: Optional[Tuple[PosEnc, ...]] = None):
+                pos_cache: Optional[Tuple[PosEnc, ...]] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         x = self.mlp_pre(features)
         L = len(self.enc)
         skips = []
@@ -132,4 +148,4 @@ class RandLA(nn.Module):
             up = nearest_interpolate(x, pyr.interp_idx[lvl])
             x = dec(torch.cat([skips[lvl], up], dim=-1))
         feat = self.mlp_out(x)
-        return feat, self.fc_label(feat)
+        return feat, self.fc_label(self.dropout(feat, generator) if train else feat)

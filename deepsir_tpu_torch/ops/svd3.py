@@ -1,10 +1,13 @@
 """Batched 3x3 SVD and weighted Kabsch pose solve (deepsir_tpu/ops/svd3.py).
 
-Forward only. The SVD is the reference's closed-form route: 8 sweeps of
-cyclic Jacobi on A^T A give V and s^2, U's columns are A v_i / s_i with an
-orthonormal completion for (near-)zero singular values. The Kabsch solve
-keeps the reference's weight normalisation, covariance scaling and det flip;
-a non-finite result gives the identity and sets `invalid`.
+The SVD is the reference's closed-form route: 8 sweeps of cyclic Jacobi on
+A^T A give V and s^2, U's columns are A v_i / s_i with an orthonormal
+completion for (near-)zero singular values. Its gradient is the reference's
+custom VJP, the square-SVD adjoint with Tikhonov-clamped gaps
+(`_SVD3x3.backward`), so autograd never unrolls the Jacobi sweeps. The
+Kabsch solve keeps the reference's weight normalisation, covariance scaling
+and det flip, and is differentiable in the weights and the target points; a
+non-finite result gives the identity and sets `invalid`.
 """
 from __future__ import annotations
 
@@ -54,8 +57,7 @@ def _orthogonal_to(u: torch.Tensor) -> torch.Tensor:
     return c / (_norm(c) + _EPS)
 
 
-def svd3x3(mats: torch.Tensor):
-    """SVD of batched 3x3 matrices (..., 3, 3) -> (u, s, vt), s descending."""
+def _svd3x3_impl(mats: torch.Tensor):
     ata = mats.transpose(-1, -2) @ mats
     w, v = _jacobi_eigh3(ata)
     order = torch.argsort(w, dim=-1, stable=True).flip(-1)            # desc
@@ -84,6 +86,41 @@ def svd3x3(mats: torch.Tensor):
     sgn = torch.where(sgn == 0, torch.ones_like(sgn), sgn)
     v = torch.cat([v[..., :, :2], v[..., :, 2:] * sgn[..., None, None]], dim=-1)
     return u, s, v.transpose(-1, -2)
+
+
+class _SVD3x3(torch.autograd.Function):
+    """The Jacobi SVD forward, with the square-SVD adjoint as its backward
+    (deepsir_tpu/ops/svd3.py:122-149)."""
+
+    @staticmethod
+    def forward(ctx, mats):
+        u, s, vt = _svd3x3_impl(mats)
+        ctx.save_for_backward(u, s, vt)
+        return u, s, vt
+
+    @staticmethod
+    def backward(ctx, du, ds, dvt):
+        """dA = U [diag(ds) + J_u S + S J_v] V^T with J_u = F o (U^T dU - dU^T U),
+        J_v = F o (V^T dV - dV^T V), F_ij = d / (d^2 + 1e-10) for
+        d = s_j^2 - s_i^2 off the diagonal and 0 on it."""
+        u, s, vt = ctx.saved_tensors
+        v, dv = vt.transpose(-1, -2), dvt.transpose(-1, -2)
+        s2 = s * s
+        diff = s2[..., None, :] - s2[..., :, None]
+        eye = torch.eye(3, dtype=s.dtype, device=s.device)
+        f = diff / (diff * diff + 1e-10) * (1.0 - eye)
+        sd = s[..., None, :] * eye
+        dsd = ds[..., None, :] * eye
+        utdu = u.transpose(-1, -2) @ du
+        vtdv = v.transpose(-1, -2) @ dv
+        j_u = f * (utdu - utdu.transpose(-1, -2))
+        j_v = f * (vtdv - vtdv.transpose(-1, -2))
+        return u @ (dsd + j_u @ sd + sd @ j_v) @ vt
+
+
+def svd3x3(mats: torch.Tensor):
+    """SVD of batched 3x3 matrices (..., 3, 3) -> (u, s, vt), s descending."""
+    return _SVD3x3.apply(mats)
 
 
 def _det3(m: torch.Tensor) -> torch.Tensor:
@@ -116,7 +153,8 @@ def weighted_kabsch(src: torch.Tensor, tgt: torch.Tensor, weights: torch.Tensor)
     u, _, vt = svd3x3(cov_n)
     v = vt.transpose(-1, -2)
     ut = u.transpose(-1, -2)
-    det = _det3(v @ ut)
+    with torch.no_grad():                     # only the sign is used, as a select
+        det = _det3(v @ ut)
     flip = torch.ones_like(v[..., 0, :])
     flip[..., 2] = torch.where(det > 0, 1.0, -1.0)
     rot = (v * flip[..., None, :]) @ ut

@@ -1,9 +1,14 @@
-"""Reading the JAX package's flax checkpoints (deepsir_tpu/utils/checkpoint.py:30-64).
+"""Reading and writing the JAX package's flax checkpoints
+(deepsir_tpu/utils/checkpoint.py).
 
 A checkpoint file is flax msgpack (`flax.serialization.to_bytes`) holding
 either a whole training state `{"state": {"params", "opt_state", "step"},
-"step"}` or a bare params tree. It is decoded with the port's own msgpack
-reader (utils/msgpack.py), so reading one needs neither flax nor msgpack.
+"step"}` or a bare params tree. It is decoded and encoded with the port's
+own msgpack code (utils/msgpack.py), so neither needs flax nor msgpack. A
+training state the port writes loads in the JAX package
+(`partial_restore`, `CheckPointManager.load` into the align TrainState),
+and the port resumes one the JAX package wrote: params, Adam moments and
+count.
 """
 from __future__ import annotations
 
@@ -13,8 +18,12 @@ from typing import Dict, Union
 
 from deepsir_tpu_torch.config import ModelConfig
 from deepsir_tpu_torch.models.network import Network
-from deepsir_tpu_torch.utils.msgpack import unpackb
-from deepsir_tpu_torch.utils.params import from_jax_params, load_network
+import numpy as np
+import torch
+
+from deepsir_tpu_torch.utils.msgpack import packb, unpackb
+from deepsir_tpu_torch.utils.params import (from_jax_params, load_jax_opt_state,
+                                            load_network, to_jax_opt_state, to_jax_params)
 
 BEST = "model_best.msgpack"
 
@@ -41,3 +50,32 @@ def load_checkpoint(cfg: ModelConfig, path: Union[str, os.PathLike],
     """Network(cfg) on `device` in eval mode with the checkpoint's weights;
     every stored leaf is used exactly once (`from_jax_params`)."""
     return load_network(cfg, from_jax_params(read_params(path), Network(cfg)), device)
+
+
+def save_checkpoint(path: Union[str, os.PathLike], model: Network,
+                    optimizer: torch.optim.Optimizer, step: int) -> Path:
+    """Write `model`'s params and `optimizer`'s Adam state (made by
+    training.make_optimizer) as the JAX package's CheckPointManager.save
+    writes a TrainState: {"state": {"params": {"params": tree}, "opt_state":
+    optax tree, "step": int32}, "step": step}. Returns the file's path."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    state = {"params": to_jax_params(model.state_dict()),
+             "opt_state": to_jax_opt_state(model, optimizer),
+             "step": np.asarray(step, np.int32)}
+    path.write_bytes(packb({"state": state, "step": int(step)}))
+    return path
+
+
+def load_train_state(path: Union[str, os.PathLike], model: Network,
+                     optimizer: torch.optim.Optimizer) -> int:
+    """Resume from a whole training state (a file, or a directory's
+    model_best.msgpack) written by the JAX package or `save_checkpoint`:
+    load its params into `model` (every leaf once) and its Adam moments and
+    count into `optimizer`. Returns the stored step."""
+    raw = unpackb(resolve(path).read_bytes())
+    state = raw["state"]
+    sd = from_jax_params(state["params"], model)
+    model.load_state_dict(sd, strict=True)
+    load_jax_opt_state(state["opt_state"], model, optimizer)
+    return int(raw["step"])

@@ -45,13 +45,15 @@ def flax_path(torch_key: str) -> Tuple[Tuple[str, ...], bool]:
     return tuple(out) + (leaf,), False
 
 
-def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], object]:
+    """{path: leaf} of a nested tree; an empty map is a leaf (optax's masked
+    node), any other leaf becomes a numpy array."""
     flat = {}
     for k, v in tree.items():
-        if isinstance(v, Mapping):
+        if isinstance(v, Mapping) and v:
             flat.update(_flatten(v, prefix + (k,)))
         else:
-            flat[prefix + (k,)] = np.asarray(v)
+            flat[prefix + (k,)] = v if isinstance(v, Mapping) else np.asarray(v)
     return flat
 
 
@@ -129,3 +131,111 @@ def load_network(cfg: ModelConfig, state_dict: Mapping[str, torch.Tensor],
     model = Network(cfg)
     model.load_state_dict(state_dict, strict=True)
     return model.to(device).eval()
+
+
+def _sorted_tree(tree: Mapping) -> Dict:
+    """A nested dict with its keys sorted at every level, as JAX orders a
+    params tree."""
+    return {k: _sorted_tree(v) if isinstance(v, Mapping) else v
+            for k, v in sorted(tree.items())}
+
+
+def _to_flax_leaf(key: str, value: torch.Tensor) -> Tuple[Tuple[str, ...], np.ndarray]:
+    path, transpose = flax_path(key)
+    arr = value.detach().cpu().numpy()
+    return path, np.ascontiguousarray(arr.T if transpose else arr)
+
+
+def _nest(flat: Mapping[Tuple[str, ...], object]) -> Dict:
+    tree: Dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        if path[-1] in node:
+            raise ValueError(f"two leaves at {'/'.join(path)}")
+        node[path[-1]] = leaf
+    return _sorted_tree(tree)
+
+
+def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """A state_dict of the align `Network` -> the flax variables
+    {"params": tree} with numpy leaves: the inverse of `from_jax_params`,
+    every entry used once, Linear weights transposed back to kernels."""
+    return {"params": _nest(dict(_to_flax_leaf(k, v) for k, v in state_dict.items()))}
+
+
+# the optax state of deepsir_tpu/training.py::make_optimizer for align:
+# multi_transform({"train": adam(schedule), "freeze": set_to_zero()}) over
+# the params, "train" on inlier_model's leaves; adam is chain(scale_by_adam
+# (count, mu, nu), scale_by_schedule (count)), and a masked-out leaf of mu
+# and nu is stored as an empty map
+TRAINABLE = "inlier_model"      # deepsir_tpu/training.py:37-41, align
+
+
+def _named_trainable(model: nn.Module):
+    return [(f"{TRAINABLE}.{name}", p)
+            for name, p in getattr(model, TRAINABLE).named_parameters()]
+
+
+def to_jax_opt_state(model: nn.Module, optimizer: torch.optim.Optimizer) -> Dict:
+    """The Adam state of `optimizer` (made by training.make_optimizer) as the
+    JAX package's optax state tree: exp_avg -> mu, exp_avg_sq -> nu, step ->
+    both int32 counts; frozen leaves of mu and nu are empty maps. Before the
+    first step the moments are zero and the counts 0, as optax initialises
+    them."""
+    frozen = {flax_path(k)[0]: {} for k in model.state_dict()}
+    mu, nu = dict(frozen), dict(frozen)
+    count = 0
+    for key, p in _named_trainable(model):
+        state = optimizer.state.get(p, {})
+        path = flax_path(key)[0]
+        for tree, name in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+            tree[path] = _to_flax_leaf(key, state.get(name, torch.zeros_like(p)))[1]
+        if "step" in state:
+            count = int(state["step"])
+    counts = np.asarray(count, np.int32)
+    adam = {"count": counts, "mu": {"params": _nest(mu)}, "nu": {"params": _nest(nu)}}
+    return {"inner_states": {"freeze": {"inner_state": {}},
+                             "train": {"inner_state": {"0": adam,
+                                                       "1": {"count": counts.copy()}}}}}
+
+
+def load_jax_opt_state(opt_state: Mapping, model: nn.Module,
+                       optimizer: torch.optim.Optimizer) -> int:
+    """Set `optimizer`'s Adam state from the JAX package's optax state tree
+    (the layout `to_jax_opt_state` writes): mu -> exp_avg, nu -> exp_avg_sq,
+    count -> step. Every inlier leaf is read once and every frozen leaf must
+    be an empty map; returns the count."""
+    train = opt_state["inner_states"]["train"]["inner_state"]
+    count = int(train["0"]["count"])
+    if int(train["1"]["count"]) != count:
+        raise ValueError(f"adam count {count} and schedule count "
+                         f"{int(train['1']['count'])} differ")
+    moments = {}
+    for name in ("mu", "nu"):
+        flat = _flatten(train["0"][name]["params"])
+        for key, p in _named_trainable(model):
+            path, transpose = flax_path(key)
+            arr = flat.pop(path, None)
+            if not isinstance(arr, np.ndarray):
+                raise ValueError(f"{name}: no moment at {'/'.join(path)}")
+            arr = arr.T if transpose else arr
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{name} {'/'.join(path)}: shape {arr.shape}, "
+                                 f"parameter {tuple(p.shape)}")
+            moments[(name, key)] = torch.tensor(arr, dtype=p.dtype, device=p.device)
+        left = [p for p, v in flat.items() if not (isinstance(v, dict) and not v)]
+        if left:
+            raise ValueError(f"{name}: leaves outside {TRAINABLE}: {left[:3]}")
+    names = {id(p): key for key, p in _named_trainable(model)}
+    for group in optimizer.param_groups:
+        on_device = group.get("capturable") or group.get("fused")
+        for p in group["params"]:
+            key = names[id(p)]
+            step = torch.tensor(float(count), dtype=torch.float32,
+                                device=p.device if on_device else "cpu")
+            optimizer.state[p] = {"step": step, "exp_avg": moments[("mu", key)],
+                                  "exp_avg_sq": moments[("nu", key)]}
+    return count
+

@@ -1,7 +1,9 @@
-"""Where the time goes in the PyTorch port's align inference forward, on one
-CUDA card.
+"""Where the time goes in the PyTorch port's align inference forward, or in
+its training step, on one CUDA card.
 
     python scripts/profile_torch_align.py [--path default] [--batch 1] [--reps 3]
+                                          [--out FILE]
+    python scripts/profile_torch_align.py --train {parity,default,F} [--reps 3]
                                           [--out FILE]
 
 Drives `device_batch` -> `Network.forward_align` at chip_smoke.py's full-width
@@ -13,6 +15,13 @@ curve-sorted on the host, outside the timed steps) and prints:
 - torch.profiler over one batch: device time by kernel (top 25), the number
   of device events (kernel launches and copies), and the device's busy share
   of the window.
+With --train, one `training.train_step` per rep after a warm-up step, as
+chip_smoke.py's "train" phase takes them: `parity` resumes the staged align
+checkpoint (its run config, dropout 0) on the 1024-point pairs of
+tests/data/torch_parity_train.npz (B=2); `default` and `F` train seeded
+weights at 18000 points (B=1, dropout 0.5). It prints the host time per step
+(median), the peak of `torch.cuda.max_memory_allocated`, and the profile of
+one step.
 With --out, the same numbers are also written there as JSON.
 """
 from __future__ import annotations
@@ -36,16 +45,18 @@ def main() -> int:
     ap.add_argument("--path", default="default", choices=list(chip_smoke.PATHS))
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--train", default=None, choices=["parity", *chip_smoke.TRAIN_CASES],
+                    help="profile the training step instead of the forward")
     ap.add_argument("--out", type=Path, default=None, help="JSON file to write")
     args = ap.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("profile_torch_align: no CUDA device", flush=True)
         return 1
+    if args.train:
+        return profile_train(args, torch.device("cuda", 0))
     from deepsir_tpu_torch.models.network import ForwardOptions
     from deepsir_tpu_torch.training import device_batch
     from deepsir_tpu_torch.utils.params import init_params, load_network
@@ -89,10 +100,23 @@ def main() -> int:
               f"B={args.batch})", flush=True)
 
     arrays = feeds[0]
+    prof = profile_window(lambda: model.forward_align(device_batch(cfg, arrays, device=dev),
+                                                      opts))
+    return report(args, {"path": args.path, "options": options, "refine_stride": stride,
+                         "batch": args.batch, "step_ms": step_ms, **prof})
+
+
+def profile_window(fn):
+    """torch.profiler over one call of fn(), ended by a synchronize: the
+    window's host time, the device's busy time, its events (kernels and
+    copies) and the top 25 kernels by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.forward_align(device_batch(cfg, arrays, device=dev), opts)
+        fn()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
 
@@ -101,9 +125,12 @@ def main() -> int:
             getattr(evt, "self_cuda_time_total", 0.0)
 
     # device-side events only (kernels, copies): the operator entries on the
-    # host carry their kernels' device time too and would count it twice
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    # host carry their kernels' device time too and would count it twice, and
+    # a host range's mirror on the device (the optimizer's step) spans kernels
+    averages = prof.key_averages()
+    host = {e.key for e in averages if e.device_type == DeviceType.CPU}
+    kernels = [e for e in averages
+               if e.device_type == DeviceType.CUDA and dev_us(e) > 0 and e.key not in host]
     kernels.sort(key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     events = sum(e.count for e in kernels)
@@ -115,6 +142,13 @@ def main() -> int:
           flush=True)
     for t in top:
         print(f"{t['device_ms']:9.3f} ms {t['count']:6d}x  {t['name']}", flush=True)
+    return {"window_ms": window_ms, "device_busy_ms": busy_ms, "device_events": events,
+            "top": top}
+
+
+def report(args, record) -> int:
+    """Print the card's name and power limit; write `record` to --out."""
+    import torch
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -122,12 +156,46 @@ def main() -> int:
     if args.out is None:
         return 0
     args.out.parent.mkdir(parents=True, exist_ok=True)
-    args.out.write_text(json.dumps({
-        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "path": args.path, "options": options, "refine_stride": stride, "batch": args.batch,
-        "step_ms": step_ms, "window_ms": window_ms,
-        "device_busy_ms": busy_ms, "device_events": events, "top": top}, indent=1))
+    args.out.write_text(json.dumps({"device": torch.cuda.get_device_name(0),
+                                    "nvidia_smi": smi, **record}, indent=1))
     return 0
+
+
+def profile_train(args, dev) -> int:
+    """ms per training step, peak memory and the profile of one step."""
+    import torch
+    import chip_smoke
+    from deepsir_tpu_torch.training import train_step
+    if args.train == "parity":
+        fx, arrays, cfgs, model, opt, _ = chip_smoke.parity_training(dev)
+        feeds = [arrays] * (args.reps + 2)
+        steps_per_epoch = int(fx["steps_per_epoch"])
+    else:
+        cfgs, model, opt = chip_smoke.seeded_training(dev, args.train)
+        rng = np.random.default_rng(0)
+        feeds = [chip_smoke.train_arrays(rng, 1) for _ in range(args.reps + 2)]
+        steps_per_epoch = 1
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for arrays in feeds[:-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(model, opt, cfgs, arrays, gen, steps_per_epoch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if out["skipped"]:
+            raise AssertionError(f"train {args.train}: a step was skipped")
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = float(np.median(times[1:]))
+    b, n = feeds[0]["points_src"].shape[:2]
+    print(f"train {args.train} {n} points B={b}: {step_ms:.3f} ms per step (median of "
+          f"{args.reps} after a warm-up; {[round(t, 3) for t in times]}), peak memory "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    prof = profile_window(lambda: train_step(model, opt, cfgs, feeds[-1], gen, steps_per_epoch))
+    return report(args, {"train": args.train, "points": int(n), "batch": int(b),
+                         "ms_per_step": step_ms, "step_ms": times,
+                         "max_memory_allocated": int(peak), **prof})
 
 
 if __name__ == "__main__":

@@ -5,10 +5,15 @@ PyTorch port against it where JAX is absent:
   relaxed mutual gate and the Morton pyramid with windowed KNN
   (MODEL_PATHS), at 4096 points so that level 0 is really windowed; its
   clouds are Morton-sorted before the forward and its index arrays stored
-  as uint16 to keep the file small.
+  as uint16 to keep the file small;
+- tests/data/torch_parity_ckpt.npz: the tracked align checkpoints' eval
+  forward on their run's synthetic pairs;
+- tests/data/torch_parity_train.npz: two training steps of the staged align
+  checkpoint, resumed with its Adam state, on 2 of those pairs at 1024
+  points (`train`).
 
 Run on the CPU with JAX installed:
-    python tests/data/make_torch_parity_fixture.py
+    python tests/data/make_torch_parity_fixture.py [small] [paths] [ckpt] [train]
 
 Each file holds the model config (`model_json`), the flax params
 (`param/<path>`), the input arrays, both clouds' pyramid indices and the
@@ -232,11 +237,91 @@ def build_ckpt() -> Dict[str, np.ndarray]:
     return fixture
 
 
-def main(names=("small", "paths", "ckpt")) -> None:
+OUT_TRAIN = Path(__file__).with_name("torch_parity_train.npz")
+TRAIN_PAIRS, TRAIN_STEPS = 2, 2
+# the staged run's loader: 256 synthetic training pairs in batches of 8
+TRAIN_STEPS_PER_EPOCH = 32
+
+
+def build_train() -> Dict[str, np.ndarray]:
+    """Two align training steps of the JAX package, as make_train_step takes
+    them, from the staged checkpoint's params and optimizer state, with its
+    run config at dropout_rate 0, on the first TRAIN_PAIRS checkpoint pairs
+    at 1024 points over exact pyramids: `jax.value_and_grad(compute_loss)`,
+    then `tx.update` where the step is not skipped. Stores per step the loss
+    terms, `skipped`, the lr and the matches; the inlier grads of step 1
+    and the inlier params after the last step, each leaf whole or, above
+    chip_smoke.SUMMARY_ENTRIES entries, summarised (chip_smoke.summarize_leaf)."""
+    import jax
+    import optax
+    from flax.traverse_util import flatten_dict
+    from chip_smoke import summarize_leaf
+    from deepsir_tpu.config import replace
+    from deepsir_tpu.models import ForwardOptions
+    from deepsir_tpu.models.network import PairBatch
+    from deepsir_tpu.training import (compute_loss, create_train_state, make_lr_schedule,
+                                      make_optimizer)
+    from deepsir_tpu.utils.checkpoint import CheckPointManager
+    cfg = run_config(num_points=1024)
+    cfg = replace(cfg, model=replace(cfg.model, dropout_rate=0.0))
+    arrays = ckpt_pairs(1024, TRAIN_PAIRS)
+    model, template = create_train_state(cfg, arrays, TRAIN_STEPS_PER_EPOCH)
+    ckpt = str(ROOT / CKPTS[0] / "ckpt")
+    state, _ = CheckPointManager(ckpt).load(ckpt, template)
+    m = cfg.model
+    pyramids = [exact_pyramid(arrays[f"points_{s}"][..., :3], m.num_knn, m.sub_sampling_ratio)
+                for s in ("src", "ref")]
+    batch = PairBatch(arrays["points_src"], arrays["points_ref"], *pyramids,
+                      arrays["transform_gt"], mask_src=arrays["mask_src"],
+                      mask_ref=arrays["mask_ref"])
+    opts = ForwardOptions(num_iter=m.num_train_reg_iter)
+    rng = jax.random.PRNGKey(0)
+    tx = make_optimizer(cfg, TRAIN_STEPS_PER_EPOCH)
+    schedule = make_lr_schedule(cfg, TRAIN_STEPS_PER_EPOCH)
+
+    @jax.jit
+    def step_of(p):
+        (loss, aux), g = jax.value_and_grad(
+            lambda q: compute_loss(cfg, model, q, batch, opts, True, rng), has_aux=True)(p)
+        _, out = model.apply(p, batch, opts, train=True, rngs={"dropout": rng})
+        return loss, aux, g, out.pred_idx
+
+    def inlier(tree):
+        flat = flatten_dict(jax.device_get(tree)["params"]["inlier_model"])
+        return {"inlier_model/" + "/".join(k): np.asarray(v) for k, v in flat.items()}
+
+    params, opt_state = state.params, state.opt_state
+    count = int(opt_state.inner_states["train"].inner_state[1].count)
+    fixture = dict(arrays, count=np.asarray(count), steps=np.asarray(TRAIN_STEPS),
+                   steps_per_epoch=np.asarray(TRAIN_STEPS_PER_EPOCH))
+    for s in range(TRAIN_STEPS):
+        loss, aux, grads, pred = jax.device_get(step_of(params))
+        ok = (np.isfinite(loss) and not aux["invalid"]
+              and all(np.isfinite(g).all() for g in jax.tree_util.tree_leaves(grads)))
+        fixture.update({f"step{s}_loss": np.asarray(loss), f"step{s}_skipped": np.asarray(not ok),
+                        f"step{s}_lr": np.asarray(schedule(count)),
+                        f"step{s}_pred_idx": np.asarray(pred, np.uint16)})
+        for key, value in aux["losses"].items():
+            fixture[f"step{s}_term/{key}"] = np.asarray(value)
+        if s == 0:
+            for path, leaf in inlier(grads).items():
+                for field, value in summarize_leaf(leaf).items():
+                    fixture[f"grad0/{path}/{field}"] = value
+        if ok:
+            updates, opt_state = tx.update(grads, opt_state, params)
+            params = optax.apply_updates(params, updates)
+            count += 1
+    for path, leaf in inlier(params).items():
+        for field, value in summarize_leaf(leaf).items():
+            fixture[f"param{TRAIN_STEPS}/{path}/{field}"] = value
+    return fixture
+
+
+def main(names=("small", "paths", "ckpt", "train")) -> None:
     import jax
     jax.config.update("jax_platforms", "cpu")
     makers = {"small": (OUT, build), "paths": (OUT_PATHS, build_paths),
-                "ckpt": (OUT_CKPT, build_ckpt)}
+              "ckpt": (OUT_CKPT, build_ckpt), "train": (OUT_TRAIN, build_train)}
     for name in names:
         out, make = makers[name]
         np.savez_compressed(out, **make())
@@ -246,4 +331,4 @@ def main(names=("small", "paths", "ckpt")) -> None:
 if __name__ == "__main__":
     import sys
     sys.path.insert(0, str(ROOT))
-    main(sys.argv[1:] or ("small", "paths", "ckpt"))
+    main(sys.argv[1:] or ("small", "paths", "ckpt", "train"))

@@ -47,7 +47,7 @@ from deepsir_tpu_torch.config import ModelConfig
 from deepsir_tpu_torch.models.network import ForwardOptions
 from deepsir_tpu_torch.ops.pyramid import Pyramid, build_cloud_pyramid
 from deepsir_tpu_torch.training import device_batch
-from deepsir_tpu_torch.utils.params import flax_path, init_params, load_network
+from deepsir_tpu_torch.utils.params import init_params, load_network, to_jax_params
 
 _spec = importlib.util.spec_from_file_location(
     "make_torch_parity_fixture",
@@ -83,19 +83,6 @@ CASES = {
                       fc_norm="none", randla_skips="post"), 2, "distinct", np.float16),
 }
 RAW = (700, 900)            # real points of the ragged pair's two clouds
-
-
-def to_flax(state):
-    """The inverse of `from_jax_params`: a port state_dict -> flax params."""
-    tree = {}
-    for key, value in state.items():
-        path, transpose = flax_path(key)
-        arr = value.numpy()
-        node = tree
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        node[path[-1]] = arr.T if transpose else arr
-    return {"params": tree}
 
 
 def make_arrays(model_cfg, masks, payload):
@@ -161,7 +148,7 @@ def _run(runs, name):
                              refine_stride=stride)
     port_cfg = ModelConfig(**model_cfg)
     state = init_params(port_cfg, seed=1)
-    params = to_flax(state)
+    params = to_jax_params(state)
     shapes = None
     if name in NEW_TREES:
         shapes = jax.eval_shape(lambda a: model.init(jax.random.PRNGKey(0),

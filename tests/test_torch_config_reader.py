@@ -1,15 +1,19 @@
-"""`config.from_run_config`: every tracked align run's config.json maps to a
-port ModelConfig that `check_supported` admits, field for field as the JAX
-package reads it; unknown keys, another pipeline and precision the port
-does not compute raise."""
+"""`config.from_run_config` and `config.read_run_config`: every tracked align
+run's config.json maps to a port ModelConfig that `check_supported` admits,
+and to the LossConfig and TrainConfig fields the training step reads, field
+for field as the JAX package reads them; unknown keys, another pipeline and
+precision the port does not compute raise."""
 import dataclasses
 import json
 from pathlib import Path
 
 import pytest
 
-from deepsir_tpu.config import ModelConfig as JaxModelConfig
-from deepsir_tpu_torch.config import IGNORED_KEYS, ModelConfig, from_run_config
+from deepsir_tpu.config import (Config, DataConfig, LossConfig as JaxLossConfig,
+                                ModelConfig as JaxModelConfig, TrainConfig as JaxTrainConfig)
+from deepsir_tpu_torch.config import (DATA_READ, IGNORED_DATA_KEYS, IGNORED_KEYS,
+                                      IGNORED_TRAIN_KEYS, LossConfig, ModelConfig, TrainConfig,
+                                      from_run_config, read_run_config)
 from deepsir_tpu_torch.models.network import Network
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -58,19 +62,22 @@ def test_an_unknown_key_raises_naming_it():
 
 
 def test_each_ignored_key_is_named_with_its_reason():
-    assert set(IGNORED_KEYS) == {"num_sub", "dropout_rate", "knn_recall_target",
-                                 "matcher_method", "num_train_reg_iter", "no_slack",
-                                 "num_sk_iter"}
-    for key, reason in IGNORED_KEYS.items():
+    assert set(IGNORED_KEYS) == {"num_sub", "knn_recall_target", "matcher_method",
+                                 "no_slack", "num_sk_iter"}
+    for key, reason in {**IGNORED_KEYS, **IGNORED_DATA_KEYS, **IGNORED_TRAIN_KEYS}.items():
         assert len(reason) > 20, key
     run = json.loads(STAGED.read_text())
     base = from_run_config(run)
-    for key, value in (("num_sub", 128), ("dropout_rate", 0.1), ("knn_recall_target", 1.0),
-                       ("matcher_method", "xla"), ("num_train_reg_iter", 3),
-                       ("no_slack", True), ("num_sk_iter", 9)):
+    for key, value in (("num_sub", 128), ("knn_recall_target", 1.0),
+                       ("matcher_method", "xla"), ("no_slack", True), ("num_sk_iter", 9)):
         changed = json.loads(json.dumps(run))
         changed["model"][key] = value
         assert from_run_config(changed) == base, key
+    # the training step reads these two: they are fields now
+    for key, value in (("dropout_rate", 0.1), ("num_train_reg_iter", 3)):
+        changed = json.loads(json.dumps(run))
+        changed["model"][key] = value
+        assert getattr(from_run_config(changed), key) == value, key
 
 
 @pytest.mark.parametrize("value", ["default", "high"])
@@ -93,3 +100,48 @@ def test_scoped_precision_fields_are_kept(value):
 def test_label_and_feat_configs_raise(path):
     with pytest.raises(ValueError, match="pipeline"):
         from_run_config(ROOT / path)
+
+
+def _jax_config(run):
+    return Config(pipeline="align",
+                  model=JaxModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                                          for k, v in run["model"].items()}),
+                  data=DataConfig(**run["data"]), loss=JaxLossConfig(**run["loss"]),
+                  train=JaxTrainConfig(**run["train"])).resolved()
+
+
+@pytest.mark.parametrize("path", ALIGN)
+def test_loss_and_train_blocks_read_as_jax_reads_them(path):
+    run = json.loads((ROOT / path).read_text())
+    cfgs = read_run_config(ROOT / path)
+    assert cfgs.model == from_run_config(run)
+    jax_cfg = _jax_config(run)
+    for field in dataclasses.fields(LossConfig):
+        assert getattr(cfgs.loss, field.name) == getattr(jax_cfg.loss, field.name), field.name
+    for field in dataclasses.fields(TrainConfig):
+        assert getattr(cfgs.train, field.name) == getattr(jax_cfg.train, field.name), field.name
+    # every JAX field is read or named with its reason
+    jax_loss = {f.name for f in dataclasses.fields(JaxLossConfig)}
+    assert jax_loss == {f.name for f in dataclasses.fields(LossConfig)}
+    jax_train = {f.name for f in dataclasses.fields(JaxTrainConfig)}
+    assert jax_train == {f.name for f in dataclasses.fields(TrainConfig)} | set(IGNORED_TRAIN_KEYS)
+    jax_data = {f.name for f in dataclasses.fields(DataConfig)}
+    assert jax_data == set(DATA_READ) | set(IGNORED_DATA_KEYS)
+
+
+def test_thres_radius_is_filled_from_the_data_block():
+    run = json.loads(STAGED.read_text())
+    run["loss"]["thres_radius"] = -1.0
+    run["data"].update(voxel_size=0.05, positive_pair_radius_multiplier=4.0)
+    cfgs = read_run_config(run)
+    assert cfgs.loss.thres_radius == _jax_config(run).loss.thres_radius == 0.05 * 4.0
+    run["loss"]["thres_radius"] = 0.7
+    assert read_run_config(run).loss.thres_radius == 0.7
+
+
+@pytest.mark.parametrize("block", ["loss", "train", "data"])
+def test_an_unknown_loss_train_or_data_key_raises_naming_it(block):
+    run = json.loads(STAGED.read_text())
+    run[block]["use_magic"] = 1
+    with pytest.raises(ValueError, match="use_magic"):
+        read_run_config(run)
