@@ -34,13 +34,24 @@ tests/data/torch_parity_train.npz against JAX's stored steps, four
 full-width steps (18000 points, dropout 0.5) each on the default options
 (K1, K2) and F (K1, K3) with seeded weights, one step of each and of the
 staged checkpoint at 18000 points against the same step with plain versions
-of every kernel, and a checkpoint written and read back. Imports neither
-JAX nor the JAX package.
+of every kernel, and a checkpoint written and read back; then the label and
+feat pipelines ("label" and "feat" phases): the staged regimen's label and
+feat checkpoints, read by the port's decoder, against JAX's stored eval
+forward and resumed training step at 1024 points
+(tests/data/torch_parity_stages.npz), and at 18000 points under their run
+configs (feat: circle_loss_tile 1500) the forward (`training.forward_step`)
+and a training step against the plain kernels, the forward timed, four
+training steps at dropout 0.5 (label: random labels; feat: rigid pairs),
+K1 16 times per forward and per step, and a checkpoint round trip; and the
+"stages" phase: `utils.checkpoint.partial_restore` label -> feat -> align
+on the card with JAX's leaf counts. Imports neither JAX nor the JAX
+package.
 
 Output: one line per phase with its wall time; then a JSON line
 {"paths": [...]}, a JSON line {"checkpoint": {...}}, a JSON line
-{"train": {...}}, a JSON line {"kernels": [...]}, the card's name and power
-limit as nvidia-smi reports them, and last {"ok": true, "device": {...}}.
+{"train": {...}}, a JSON line {"stages": {...}}, a JSON line
+{"kernels": [...]}, the card's name and power limit as nvidia-smi reports
+them, and last {"ok": true, "device": {...}}.
 Any failure raises: the exit code is not 0 and the last line is not
 printed. Needs one CUDA card.
 """
@@ -1053,13 +1064,13 @@ def _projections(n: int) -> np.ndarray:
     return g / np.linalg.norm(g, axis=1, keepdims=True)
 
 
-def summarize_leaf(arr) -> dict:
-    """A leaf as the train fixture stores it: whole up to SUMMARY_ENTRIES
+def summarize_leaf(arr, max_full: int = SUMMARY_ENTRIES) -> dict:
+    """A leaf as the train fixtures store it: whole up to `max_full`
     entries; else its L2 norm, its projections on N_PROJECTIONS seeded unit
     directions and its N_TOP largest-magnitude entries with their flat
     indices."""
     arr = np.asarray(arr, np.float32)
-    if arr.size <= SUMMARY_ENTRIES:
+    if arr.size <= max_full:
         return {"full": arr}
     flat = arr.astype(np.float64).ravel()
     top = np.argsort(-np.abs(flat), kind="stable")[:N_TOP]
@@ -1095,12 +1106,12 @@ def stored_leaves(fx, prefix: str) -> dict:
 
 
 def flax_leaves(tensors) -> dict:
-    """{port parameter name under inlier_model: tensor} -> {flax path: numpy
-    array in flax's layout}."""
+    """{port parameter name: tensor} -> {flax path: numpy array in flax's
+    layout}."""
     from deepsir_tpu_torch.utils.params import flax_path
     out = {}
     for name, t in tensors.items():
-        path, transpose = flax_path("inlier_model." + name)
+        path, transpose = flax_path(name)
         arr = t.detach().cpu().numpy()
         out["/".join(path)] = arr.T if transpose else arr
     return out
@@ -1157,6 +1168,7 @@ def train_parity(torch, dev, terms_rtol=1e-4, leaf_rtol=1e-3):
     (`leaf_error`), the lr and `skipped` equal; each held only while every
     iteration's matches equal JAX's. Returns (launches, record)."""
     from deepsir_tpu_torch.training import device_batch, train_step
+    from deepsir_tpu_torch.utils.params import trainable_parameters
     fx, arrays, cfgs, model, opt, count = parity_training(dev)
     if count != int(fx["count"]):
         raise AssertionError(f"train parity: resumed count {count}, JAX {int(fx['count'])}")
@@ -1207,7 +1219,7 @@ def train_parity(torch, dev, terms_rtol=1e-4, leaf_rtol=1e-3):
     record = {"points": int(fx["points_src"].shape[1]), "pairs": int(fx["points_src"].shape[0]),
               "resumed_count": count, "steps": steps, "all_held": bool(all_held)}
     if all_held:
-        params = flax_leaves(dict(model.inlier_model.named_parameters()))
+        params = flax_leaves(dict(trainable_parameters(model)))
         want = stored_leaves(fx, f"param{int(fx['steps'])}")
         record["param_rel_err"] = max(leaf_error(params[k], want[k]) for k in want)
         if record["param_rel_err"] > leaf_rtol:
@@ -1223,11 +1235,11 @@ def train_parity(torch, dev, terms_rtol=1e-4, leaf_rtol=1e-3):
     return launches, record
 
 
-def train_arrays(rng, batch: int):
+def train_arrays(rng, batch: int, feat_len: int = FEAT_LEN):
     """make_arrays' source clouds, each with a reference that is a known
     rigid motion of it (rotation up to 30 degrees about a random axis,
     translation up to 1) plus Gaussian noise of 0.02, rows reshuffled."""
-    arrays = make_arrays(rng, batch)
+    arrays = make_arrays(rng, batch, feat_len=feat_len)
     src = arrays["points_src"]
     ref = np.empty_like(src)
     gt = np.empty((batch, 3, 4), np.float32)
@@ -1297,28 +1309,43 @@ def _fp32_near_ties(torch, qry, cand, idx, pidx):
     return rec
 
 
-def _step_against_plain(torch, model, cfgs, arrays, dev, seed, require_held):
-    """One training forward + backward with the kernels and again with every
-    kernel swapped for its plain version, from the same params and dropout
-    generator state. The pyramids must be equal, and the first iteration's
-    matches equal but for near ties (the K2 rule on the step's own
-    descriptors); the loss terms of the iterations whose matches all agree
-    within 1e-4 relative, and with every iteration held the total within
-    1e-4 and the inlier grads within 1e-3 of each leaf's scale.
-    `require_held`: fail unless every iteration holds. Returns the record."""
+def _runs_against_plain(torch, model, cfgs, arrays, dev, seed, forward=False):
+    """One training forward + backward (`compute_loss`) with the kernels and
+    again with every kernel swapped for its plain version, from the same
+    params and dropout seed; with `forward`, first the inference
+    `forward_pair` under no_grad. Returns a dict per run (kernels, plain):
+    "batch", "out", "loss", "aux" and "grads" of the trained leaves."""
     from deepsir_tpu_torch.training import compute_loss, device_batch
+    from deepsir_tpu_torch.utils.params import trainable_parameters
     runs = []
     for plain in (False, True):
         gen = torch.Generator(device=dev).manual_seed(seed)
         with plain_kernels() if plain else nullcontext():
             batch = device_batch(cfgs.model, arrays, device=dev)
+            out = None
+            if forward:
+                with torch.no_grad():
+                    out = model.forward_pair(batch)
             model.zero_grad(set_to_none=True)
             loss, aux = compute_loss(model, cfgs.loss, batch, gen)
             loss.backward()
-        runs.append((batch, loss.item(), {k: v.item() for k, v in aux["losses"].items()},
-                     aux["pred_idx"], {n: p.grad.clone()
-                                       for n, p in model.inlier_model.named_parameters()}))
+        runs.append({"batch": batch, "out": out, "loss": loss.item(), "aux": aux,
+                     "grads": {n: p.grad.clone() for n, p in trainable_parameters(model)}})
     model.zero_grad(set_to_none=True)
+    return runs
+
+
+def _step_against_plain(torch, model, cfgs, arrays, dev, seed, require_held):
+    """`_runs_against_plain` on the align pipeline. The pyramids must be
+    equal, and the first iteration's matches equal but for near ties (the
+    K2 rule on the step's own descriptors); the loss terms of the
+    iterations whose matches all agree within 1e-4 relative, and with every
+    iteration held the total within 1e-4 and the inlier grads within 1e-3
+    of each leaf's scale. `require_held`: fail unless every iteration holds.
+    Returns the record."""
+    runs = [(r["batch"], r["loss"], {k: v.item() for k, v in r["aux"]["losses"].items()},
+             r["aux"]["pred_idx"], r["grads"])
+            for r in _runs_against_plain(torch, model, cfgs, arrays, dev, seed)]
     (k_batch, k_loss, k_terms, k_idx, k_grads), (p_batch, p_loss, p_terms, p_idx, p_grads) = runs
     for side in ("src", "ref"):
         for a, b in zip(getattr(k_batch, f"pyramid_{side}").neigh_idx,
@@ -1367,46 +1394,62 @@ def train_trained_against_plain(torch, dev):
     return rec
 
 
+def timed_steps(torch, dev, what, model, opt, cfgs, feeds, gen, steps_per_epoch, per_step):
+    """One `train_step` on each of `feeds`, timed on the host clock around a
+    synchronize: each step's launches equal `per_step` (in COUNTED's order),
+    each step finite and applied; afterwards the frozen params bit-identical
+    and at least 90% of the trained leaves (`trainable_parameters`) changed.
+    Returns (launches in all, ms per step, losses, peak bytes allocated)."""
+    from deepsir_tpu_torch.training import train_step
+    from deepsir_tpu_torch.utils.params import trainable_parameters
+    counted = kernels()
+    want = dict(zip(COUNTED, per_step))
+    trained = {n for n, _ in trainable_parameters(model)}
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    total = dict.fromkeys(COUNTED, 0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses = [], []
+    for arrays in feeds:
+        torch.cuda.synchronize()
+        reset_counts(counted)
+        t0 = time.perf_counter()
+        out = train_step(model, opt, cfgs, arrays, gen, steps_per_epoch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches, _ = read_counts(counted)
+        if launches != want:
+            raise AssertionError(f"{what} step: launches {launches}, expected {want}")
+        for key, n in launches.items():
+            total[key] += n
+        if out["skipped"] or not np.isfinite(float(out["loss"])):
+            raise AssertionError(f"{what}: step skipped or not finite: {out['loss']}")
+        losses.append({"total": float(out["loss"]),
+                       **{k: float(v) for k, v in out.get("losses", {}).items()},
+                       **({"acc": float(out["acc"])} if "acc" in out else {})})
+    peak = torch.cuda.max_memory_allocated(dev)
+    changed = 0
+    for key, value in model.state_dict().items():
+        if key in trained:
+            changed += not torch.equal(value, before[key])
+        elif not torch.equal(value, before[key]):
+            raise AssertionError(f"{what}: frozen parameter {key} changed")
+    if changed < 0.9 * len(trained):
+        raise AssertionError(f"{what}: {changed} of {len(trained)} trained leaves changed")
+    return total, times, losses, peak
+
+
 def train_full_width(torch, dev, name: str):
     """TRAIN_STEPS training steps at full width (N_POINTS, feat_len 4, B=1,
     2 registration iterations, dropout 0.5 from a seeded CUDA generator,
-    seeded weights) along one case: the launch counts, every step finite
-    and applied, frozen params bit-identical and inlier params changed; one
-    step against its plain version. Returns (launches, record)."""
-    from deepsir_tpu_torch.training import train_step
+    seeded weights) along one case through `timed_steps`; then one step
+    against its plain version. Returns (launches, record, model, optimizer)."""
     options, per_step = TRAIN_CASES[name]
     cfgs, model, opt = seeded_training(dev, name)
-    before = {k: v.clone() for k, v in model.state_dict().items()}
     rng = np.random.default_rng(0)
     feeds = [train_arrays(rng, 1) for _ in range(TRAIN_STEPS)]
     gen = torch.Generator(device=dev).manual_seed(0)
-    counted = kernels()
-    torch.cuda.reset_peak_memory_stats(dev)
-    torch.cuda.synchronize()
-    reset_counts(counted)
-    losses, times = [], []
-    for arrays in feeds:
-        t0 = time.perf_counter()
-        out = train_step(model, opt, cfgs, arrays, gen, steps_per_epoch=1)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        if out["skipped"] or not np.isfinite(float(out["loss"])):
-            raise AssertionError(f"train {name}: step skipped or not finite: {out['loss']}")
-        losses.append({"total": float(out["loss"]),
-                       **{k: float(v) for k, v in out["losses"].items()}})
-    launches, _ = read_counts(counted)
-    peak = torch.cuda.max_memory_allocated(dev)
-    want = dict(zip(COUNTED, (n * TRAIN_STEPS for n in per_step)))
-    if launches != want:
-        raise AssertionError(f"train {name}: launches {launches}, expected {want}")
-    changed = False
-    for key, value in model.state_dict().items():
-        if key.startswith("inlier_model."):
-            changed |= not torch.equal(value, before[key])
-        elif not torch.equal(value, before[key]):
-            raise AssertionError(f"train {name}: frozen parameter {key} changed")
-    if not changed:
-        raise AssertionError(f"train {name}: no inlier parameter changed")
+    launches, times, losses, peak = timed_steps(torch, dev, f"train {name}", model, opt, cfgs,
+                                                feeds, gen, 1, per_step)
     vs_plain = _step_against_plain(torch, model, cfgs, feeds[0], dev, seed=1,
                                    require_held=False)
     record = {"case": name, "points": N_POINTS, "batch": 1, "steps": TRAIN_STEPS,
@@ -1420,13 +1463,34 @@ def train_full_width(torch, dev, name: str):
     return launches, record, model, opt
 
 
-def check_train(torch, dev):
-    """The "train" phase: parity with JAX on trained weights, the full-width
-    cases, and a checkpoint round trip. Returns (launches, record)."""
+def round_trip(torch, model, opt, dev, step: int):
+    """`save_checkpoint` of `model` and its Adam state, then `load_train_state`
+    into a fresh network and optimizer of the same pipeline: (bytes written,
+    whether params, moments and counts read back bit-equal)."""
     import tempfile
     from deepsir_tpu_torch.models.network import Network
     from deepsir_tpu_torch.training import make_optimizer
     from deepsir_tpu_torch.utils.checkpoint import load_train_state, save_checkpoint
+    from deepsir_tpu_torch.utils.params import trainable_parameters
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_checkpoint(Path(tmp) / f"model_{step}.msgpack", model, opt, step)
+        fresh = Network(model.cfg, model.pipeline).to(dev)
+        fresh_opt = make_optimizer(fresh)
+        stored = load_train_state(path, fresh, fresh_opt)
+        size = path.stat().st_size
+    equal = stored == step and all(
+        torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                          fresh.state_dict().values()))
+    for (_, p), (_, q) in zip(trainable_parameters(model), trainable_parameters(fresh)):
+        a, b = opt.state[p], fresh_opt.state[q]
+        equal &= all(torch.equal(a[k].to(b[k].device), b[k])
+                     for k in ("exp_avg", "exp_avg_sq", "step"))
+    return size, equal
+
+
+def check_train(torch, dev):
+    """The "train" phase: parity with JAX on trained weights, the full-width
+    cases, and a checkpoint round trip. Returns (launches, record)."""
     total = dict.fromkeys(COUNTED, 0)
     launches, record = train_parity(torch, dev)
     record = {"parity": record}
@@ -1438,24 +1502,340 @@ def check_train(torch, dev):
             total[key] += n
     record["trained_vs_plain"] = train_trained_against_plain(torch, dev)
     # round trip of the last case's model and Adam state
-    with tempfile.TemporaryDirectory() as tmp:
-        path = save_checkpoint(Path(tmp) / "model_4.msgpack", model, opt, TRAIN_STEPS)
-        fresh = Network(model.cfg).to(dev)
-        fresh_opt = make_optimizer(fresh)
-        step = load_train_state(path, fresh, fresh_opt)
-        size = path.stat().st_size
-    equal = step == TRAIN_STEPS and all(
-        torch.equal(a, b) for a, b in zip(model.state_dict().values(),
-                                          fresh.state_dict().values()))
-    for p, q in zip(model.inlier_model.parameters(), fresh.inlier_model.parameters()):
-        a, b = opt.state[p], fresh_opt.state[q]
-        equal &= all(torch.equal(a[k].to(b[k].device), b[k])
-                     for k in ("exp_avg", "exp_avg_sq", "step"))
+    size, equal = round_trip(torch, model, opt, dev, TRAIN_STEPS)
     if not equal:
         raise AssertionError("train: the checkpoint round trip is not bit-equal")
-    record["round_trip"] = {"bytes": size, "step": step, "bit_equal": True}
+    record["round_trip"] = {"bytes": size, "step": TRAIN_STEPS, "bit_equal": True}
     log(f"train checkpoint round trip: {size} bytes, params, moments and count bit-equal")
     return total, record
+
+
+# ---------------------------------------------------- label and feat pipelines
+
+STAGE_FIXTURE = ROOT / "tests" / "data" / "torch_parity_stages.npz"
+STAGE_RUNS = {"label": ROOT / "logs_r3" / "staged_po" / "260817_185436_label",
+              "feat": ROOT / "logs_r3" / "staged_po" / "260817_185849_feat",
+              "align": CKPT_RUN}
+# (leaves, params) of each stage's checkpoint
+STAGE_LEAVES = {"label": (155, 1_330_467), "feat": (185, 1_416_771)}
+STAGE_STEPS_PER_EPOCH = 32        # the staged runs: 256 synthetic pairs in batches of 8
+FEAT_TILE = 1500                  # circle_loss_tile of the full-width feat step
+STAGE_STEPS = 4                   # full-width steps per pipeline: one warm-up, three timed
+K1_PER_BATCH = 16                 # both clouds' pyramids, 4 levels
+
+
+def stage_config(pipeline: str, num_points: int, **model):
+    """A staged run's RunConfig through read_run_config, at `num_points` and
+    with `model`'s fields replaced; the feat loss streams its columns in
+    FEAT_TILE tiles above 1024 points."""
+    from deepsir_tpu_torch.config import read_run_config, replace
+    cfgs = read_run_config(STAGE_RUNS[pipeline])
+    loss = cfgs.loss
+    if pipeline == "feat" and num_points > 1024:
+        loss = replace(loss, circle_loss_tile=FEAT_TILE)
+    return cfgs._replace(model=replace(cfgs.model, num_points=num_points, **model), loss=loss)
+
+
+def _scaled_err(torch, got, want) -> float:
+    """Largest entry difference over the reference's largest magnitude;
+    `want` a numpy array or a tensor on any device."""
+    want = torch.as_tensor(want).to(got.device).double()
+    return float((got.double() - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def stage_forward_errors(torch, pipeline, out, fx, arrays, cfgs) -> dict:
+    """forward_pair's outputs against the stages fixture's JAX forward:
+    each output's error relative to its scale, the loss's relative error and
+    the accuracies (label: argmax flips too)."""
+    from deepsir_tpu_torch.losses.detdes import det_des_loss
+    from deepsir_tpu_torch.losses.semantic import semantic_loss
+    dev = out.logits_src.device
+    rec = {}
+    if pipeline == "label":
+        rec["logits"] = max(_scaled_err(torch, out.logits_src, fx["label/logits_src"]),
+                            _scaled_err(torch, out.logits_ref, fx["label/logits_ref"]))
+        terms = [semantic_loss(getattr(out, f"logits_{s}"),
+                               torch.as_tensor(arrays[f"labels_{s}"], device=dev))
+                 for s in ("src", "ref")]
+        loss, acc = terms[0][0] + terms[1][0], (terms[0][1] + terms[1][1]) / 2
+        flips = sum(int((getattr(out, f"logits_{s}").argmax(-1).cpu().numpy()
+                         != fx[f"label/logits_{s}"].argmax(-1)).sum()) for s in ("src", "ref"))
+        rec["argmax_flips"] = flips
+        rec["argmax_flip_share"] = flips / (2 * fx["label/logits_src"][..., 0].size)
+    else:
+        rec["scores"] = max(_scaled_err(torch, out.score_src, fx["feat/score_src"]),
+                            _scaled_err(torch, out.score_ref, fx["feat/score_ref"]))
+        stride = out.feat_src.shape[1] // fx["feat/feat_src_rows"].shape[1]
+        rec["descriptors"] = max(
+            _scaled_err(torch, out.feat_src[:, ::stride], fx["feat/feat_src_rows"]),
+            _scaled_err(torch, out.feat_ref[:, ::stride], fx["feat/feat_ref_rows"]))
+        loss, acc = det_des_loss(out.feat_src, out.feat_ref, out.xyz_src, out.xyz_ref,
+                                 out.score_src, out.score_ref,
+                                 torch.as_tensor(arrays["transform_gt"], device=dev), cfgs.loss)
+    want = float(fx[f"{pipeline}/loss"])
+    rec.update(loss=float(loss), jax_loss=want, loss_rel_err=abs(float(loss) - want) / abs(want),
+               acc=float(acc), jax_acc=float(fx[f"{pipeline}/acc"]))
+    return rec
+
+
+def stage_parity(torch, dev, pipeline: str, fwd_tol=1e-5, loss_rtol=1e-5, grad_rtol=1e-4,
+                 param_rtol=1e-5):
+    """A staged checkpoint (`pipeline` "label" or "feat") against the JAX
+    package's stored eval forward and resumed step at 1024 points
+    (tests/data/torch_parity_stages.npz, JAX over exact pyramids, which the
+    port's must equal): the checkpoint read by the port's decoder; forward
+    outputs within `fwd_tol` of each one's scale (label logits: at most
+    0.1% of argmax flips), the loss within `loss_rtol` relative, the
+    accuracy equal; then the checkpoint resumed with its Adam state at
+    dropout 0 for one `train_step`: loss within `loss_rtol`, `skipped`
+    and the lr equal, each trained leaf's grad within `grad_rtol` and its
+    param after the step within `param_rtol` of the leaf's scale.
+    Returns (launches, record)."""
+    from deepsir_tpu_torch.models.network import Network
+    from deepsir_tpu_torch.training import device_batch, make_optimizer, train_step
+    from deepsir_tpu_torch.utils.checkpoint import load_checkpoint, load_train_state
+    from deepsir_tpu_torch.utils.params import trainable_parameters
+    fx = dict(np.load(STAGE_FIXTURE))
+    arrays = {k: fx[k] for k in ("points_src", "points_ref", "transform_gt", "labels_src",
+                                 "labels_ref")}
+    cfgs = stage_config(pipeline, int(fx["points_src"].shape[1]), dropout_rate=0.0)
+    model = load_checkpoint(cfgs.model, STAGE_RUNS[pipeline] / "ckpt", device=dev,
+                            pipeline=pipeline)
+    counted = kernels()
+    reset_counts(counted)
+    batch = device_batch(cfgs.model, arrays, device=dev)
+    for side in ("src", "ref"):
+        _exact_pyramid_agrees(torch, f"{pipeline} {side}", getattr(batch, f"pyramid_{side}"),
+                              cfgs.model.sub_sampling_ratio)
+    with torch.no_grad():
+        out = model.forward_pair(batch)
+    rec = stage_forward_errors(torch, pipeline, out, fx, arrays, cfgs)
+    worst = max(rec.get(k, 0.0) for k in ("logits", "scores", "descriptors"))
+    if (worst > fwd_tol or rec["loss_rel_err"] > loss_rtol or rec["acc"] != rec["jax_acc"]
+            or rec.get("argmax_flip_share", 0.0) > 1e-3):
+        raise AssertionError(f"{pipeline} parity forward: {rec}")
+
+    model = Network(cfgs.model, pipeline).to(dev)
+    opt = make_optimizer(model)
+    count = load_train_state(STAGE_RUNS[pipeline] / "ckpt", model, opt)
+    if count != int(fx[f"{pipeline}_step/count"]):
+        raise AssertionError(f"{pipeline} parity: resumed count {count}")
+    step = train_step(model, opt, cfgs, arrays, torch.Generator(device=dev).manual_seed(0),
+                      STAGE_STEPS_PER_EPOCH)
+    want_loss = float(fx[f"{pipeline}_step/step_loss"])
+    srec = {"count": count, "loss": float(step["loss"]), "jax_loss": want_loss,
+            "loss_rel_err": abs(float(step["loss"]) - want_loss) / abs(want_loss),
+            "lr": step["lr"], "jax_lr": float(fx[f"{pipeline}_step/step_lr"]),
+            "skipped": step["skipped"]}
+    grads, want = flax_leaves(step["grads"]), stored_leaves(fx, f"{pipeline}_step/grad")
+    params = flax_leaves(dict(trainable_parameters(model)))
+    want_params = stored_leaves(fx, f"{pipeline}_step/param1")
+    if set(grads) != set(want) or set(params) != set(want_params):
+        raise AssertionError(f"{pipeline} parity: trained leaves differ from the fixture's")
+    srec["grad_rel_err"] = max(leaf_error(grads[k], want[k]) for k in want)
+    srec["param_rel_err"] = max(leaf_error(params[k], want_params[k]) for k in want_params)
+    if (srec["loss_rel_err"] > loss_rtol or srec["skipped"]
+            or srec["skipped"] != bool(fx[f"{pipeline}_step/step_skipped"])
+            or abs(srec["lr"] - srec["jax_lr"]) > 1e-9 or srec["grad_rel_err"] > grad_rtol
+            or srec["param_rel_err"] > param_rtol):
+        raise AssertionError(f"{pipeline} parity step: {srec}")
+    rec["step"] = srec
+    launches, _ = read_counts(counted)
+    rec["launches"] = launches
+    log(f"{pipeline} parity {cfgs.model.num_points} points, {len(arrays['points_src'])} pairs: "
+        f"forward {json.dumps({k: v for k, v in rec.items() if k != 'step'})}; "
+        f"resumed step {json.dumps(srec)}")
+    return launches, rec
+
+
+def stage_arrays(rng, pipeline: str, feat_len: int):
+    """One full-width batch: label make_arrays' clouds with random labels
+    0..19 (0 ignored); feat train_arrays' rigid pairs."""
+    if pipeline == "feat":
+        return train_arrays(rng, 1, feat_len)
+    arrays = make_arrays(rng, 1, feat_len=feat_len)
+    for side in ("src", "ref"):
+        arrays[f"labels_{side}"] = rng.integers(0, 20, size=(1, N_POINTS)).astype(np.int32)
+    return arrays
+
+
+def _pyramids_agree(torch, what, batch, plain_batch, ratios) -> int:
+    """The kernel's (shuffled-order) pyramids against the plain KNN's: equal
+    but for near ties (`_pyramid_near_ties`); returns the differing entries."""
+    n_ties = 0
+    for side in ("src", "ref"):
+        pyr, ppyr = getattr(batch, f"pyramid_{side}"), getattr(plain_batch, f"pyramid_{side}")
+        for lvl, r in enumerate(ratios):
+            xyz = pyr.xyz[lvl]
+            n_ties += _pyramid_near_ties(torch, f"{what} {side} neigh_idx[{lvl}]",
+                                         pyr.neigh_idx[lvl], ppyr.neigh_idx[lvl].cpu().numpy(),
+                                         xyz, xyz)
+            n_ties += _pyramid_near_ties(torch, f"{what} {side} interp_idx[{lvl}]",
+                                         pyr.interp_idx[lvl], ppyr.interp_idx[lvl].cpu().numpy(),
+                                         xyz, xyz[:, :xyz.shape[1] // r])
+    return n_ties
+
+
+def stage_against_plain(torch, model, cfgs, arrays, dev):
+    """The full-width forward and one training forward + backward with the
+    kernels and again with every kernel swapped for its plain version (same
+    params, same dropout seed): pyramids equal but for near ties; where
+    they are equal, the forward outputs within 1e-4 of each one's scale,
+    the loss within 1e-4 relative and each trained leaf's grad within 1e-3
+    of its scale. Returns the record."""
+    k, p = _runs_against_plain(torch, model, cfgs, arrays, dev, seed=3, forward=True)
+    (batch, out, loss, grads), (pbatch, pout, ploss, pgrads) = (
+        (r["batch"], r["out"], r["loss"], r["grads"]) for r in (k, p))
+    rec = {"pyramid_near_ties": _pyramids_agree(torch, model.pipeline, batch, pbatch,
+                                                cfgs.model.sub_sampling_ratio),
+           "loss": loss, "plain_loss": ploss}
+    if rec["pyramid_near_ties"]:
+        return rec                        # held only where the pyramids are equal
+    fields = ("logits_src", "logits_ref", "feat_src", "feat_ref", "score_src", "score_ref")
+    rec["forward_rel_err"] = max(_scaled_err(torch, getattr(out, f), getattr(pout, f))
+                                 for f in fields if getattr(out, f) is not None)
+    rec["loss_rel_err"] = abs(loss - ploss) / abs(ploss)
+    rec["grad_rel_err"] = _grads_agree(grads, pgrads, 1e-3)
+    if rec["forward_rel_err"] > 1e-4 or rec["loss_rel_err"] > 1e-4:
+        raise AssertionError(f"{model.pipeline}: kernels against plain: {rec}")
+    return rec
+
+
+def stage_full_width(torch, dev, pipeline: str):
+    """A staged checkpoint at full width (N_POINTS, B=1) under its run
+    config: the forward and a step's grads against the plain kernels;
+    forward_step timed (median of 3 after a warm-up); STAGE_STEPS training
+    steps at the config's dropout 0.5 from a seeded CUDA generator, each
+    finite and applied, frozen params bit-identical, trained ones changed;
+    K1 launched K1_PER_BATCH times per forward and per step; a checkpoint
+    round trip bit-equal. Returns (launches of the forwards and steps, record)."""
+    from deepsir_tpu_torch.models.network import Network
+    from deepsir_tpu_torch.training import forward_step, make_optimizer
+    from deepsir_tpu_torch.utils.checkpoint import read_params
+    from deepsir_tpu_torch.utils.params import from_jax_params
+    cfgs = stage_config(pipeline, N_POINTS)
+    model = Network(cfgs.model, pipeline)
+    model.load_state_dict(from_jax_params(read_params(STAGE_RUNS[pipeline] / "ckpt"), model))
+    model.to(dev)
+    rng = np.random.default_rng(0)
+    feeds = [stage_arrays(rng, pipeline, cfgs.model.feat_len) for _ in range(STAGE_STEPS)]
+    vs_plain = stage_against_plain(torch, model, cfgs, feeds[0], dev)
+
+    counted = kernels()
+    total = dict.fromkeys(COUNTED, 0)
+    model.eval()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fwd_ms = []
+    for arrays in feeds:
+        torch.cuda.synchronize()
+        reset_counts(counted)
+        t0 = time.perf_counter()
+        out = forward_step(model, cfgs.model, arrays)
+        torch.cuda.synchronize()
+        fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        launches, _ = read_counts(counted)
+        if launches != dict(zip(COUNTED, (K1_PER_BATCH, 0, 0, 0))):
+            raise AssertionError(f"{pipeline} forward: launches {launches}")
+        for key, n in launches.items():
+            total[key] += n
+        finite = all(bool(torch.isfinite(t).all()) for t in out if t is not None)
+        if not finite:
+            raise AssertionError(f"{pipeline} forward: outputs not finite")
+    fwd_peak = torch.cuda.max_memory_allocated(dev)
+    rows = cfgs.model.num_sub if pipeline == "feat" and cfgs.model.num_sub > 0 else N_POINTS
+    if tuple(out.feat_src.shape) != (1, rows, cfgs.model.out_feat_dim) or \
+            tuple(out.logits_src.shape) != (1, N_POINTS, cfgs.model.num_classes):
+        raise AssertionError(f"{pipeline} forward: shapes {out.feat_src.shape}, "
+                             f"{out.logits_src.shape}")
+
+    model.train()
+    opt = make_optimizer(model)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    launches, step_ms, losses, step_peak = timed_steps(
+        torch, dev, pipeline, model, opt, cfgs, feeds, gen, STAGE_STEPS_PER_EPOCH,
+        (K1_PER_BATCH, 0, 0, 0))
+    for key, n in launches.items():
+        total[key] += n
+
+    size, equal = round_trip(torch, model, opt, dev, STAGE_STEPS)
+    if not equal:
+        raise AssertionError(f"{pipeline}: the checkpoint round trip is not bit-equal")
+    record = {"points": N_POINTS, "batch": 1, "steps": STAGE_STEPS,
+              "ms_per_forward": float(np.median(fwd_ms[1:])), "forward_ms": fwd_ms,
+              "ms_per_step": float(np.median(step_ms[1:])), "step_ms": step_ms,
+              "forward_max_memory_allocated": int(fwd_peak),
+              "step_max_memory_allocated": int(step_peak), "losses": losses,
+              "launches": total, "vs_plain": vs_plain,
+              "round_trip": {"bytes": size, "bit_equal": True},
+              "loss_options": {"circle_loss_tile": cfgs.loss.circle_loss_tile}}
+    log(f"{pipeline} at {N_POINTS} points: {record['ms_per_forward']:.3f} ms per forward "
+        f"({[round(t, 3) for t in fwd_ms]}), peak {fwd_peak / 2**30:.3f} GiB; "
+        f"{record['ms_per_step']:.3f} ms per step ({[round(t, 3) for t in step_ms]}), peak "
+        f"{step_peak / 2**30:.3f} GiB; losses {losses}; launches {total}; against plain: "
+        f"{vs_plain}; round trip {size} bytes bit-equal")
+    return total, record
+
+
+def check_stage(torch, dev, pipeline: str):
+    """The "label" or "feat" phase: the checkpoint's leaves, parity with JAX
+    at 1024 points (card gates: forward 1e-4, loss 1e-4, grads and params
+    1e-3 of each leaf's scale; K1 16 times in the forward and 16 in the
+    step), and the full-width run. Returns (launches of the parity and
+    full-width forwards and steps, record)."""
+    from deepsir_tpu_torch.utils.checkpoint import read_params
+    leaves = []
+
+    def walk(tree):
+        for v in tree.values():
+            walk(v) if isinstance(v, dict) else leaves.append(v)
+    t0 = time.perf_counter()
+    walk(read_params(STAGE_RUNS[pipeline] / "ckpt"))
+    decode_s = time.perf_counter() - t0
+    got = (len(leaves), sum(int(a.size) for a in leaves))
+    if got != STAGE_LEAVES[pipeline]:
+        raise AssertionError(f"{pipeline} checkpoint: {got} (leaves, params)")
+    launches, parity = stage_parity(torch, dev, pipeline, fwd_tol=1e-4, loss_rtol=1e-4,
+                                    grad_rtol=1e-3, param_rtol=1e-3)
+    if launches != dict(zip(COUNTED, (2 * K1_PER_BATCH, 0, 0, 0))):
+        raise AssertionError(f"{pipeline} parity: launches {launches}")
+    full_launches, full = stage_full_width(torch, dev, pipeline)
+    launches = {k: n + full_launches[k] for k, n in launches.items()}
+    return launches, {"checkpoint": {"leaves": got[0], "params": got[1], "decode_s": decode_s},
+                      "parity": parity, "full_width": full}
+
+
+def check_stages(torch, dev):
+    """The "stages" phase: the staged chain on the card. A seeded feat
+    network takes the label checkpoint's leaves through partial_restore,
+    and a seeded align network the feat checkpoint's: the counts JAX's
+    partial_restore loads (the stages fixture), every loaded leaf equal to
+    the stored one and every other parameter as it was."""
+    from deepsir_tpu_torch.config import from_run_config
+    from deepsir_tpu_torch.models.network import Network
+    from deepsir_tpu_torch.utils.checkpoint import partial_restore, read_params
+    from deepsir_tpu_torch.utils.params import from_jax_params, init_params
+    fx = dict(np.load(STAGE_FIXTURE))
+    record = {}
+    for source, into in (("label", "feat"), ("feat", "align")):
+        cfg = from_run_config(STAGE_RUNS[into])
+        model = Network(cfg, into)
+        model.load_state_dict(init_params(cfg, seed=0, pipeline=into))
+        model.to(dev)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        loaded = partial_restore(STAGE_RUNS[source] / "ckpt", model)
+        want = fx[f"chain/{source}->{into}"]
+        if [loaded, len(before)] != want.tolist():
+            raise AssertionError(f"stages {source}->{into}: loaded {loaded} of {len(before)}, "
+                                 f"JAX {want.tolist()}")
+        stored = from_jax_params(read_params(STAGE_RUNS[source] / "ckpt"),
+                                 Network(from_run_config(STAGE_RUNS[source]), source))
+        for key, value in model.state_dict().items():
+            expect = stored[key].to(dev) if key in stored else before[key]
+            if not torch.equal(value, expect):
+                raise AssertionError(f"stages {source}->{into}: {key} differs")
+        record[f"{source}->{into}"] = {"loaded": loaded, "leaves": len(before)}
+    log(f"stages on the card: {json.dumps(record)}, as JAX's partial_restore")
+    return record
 
 
 def main() -> int:
@@ -1512,9 +1892,18 @@ def main() -> int:
         launches, train = check_train(torch, dev)
         for key, n in launches.items():
             total[key] += n
+    stages = {}
+    for pipeline in ("label", "feat"):
+        with phase(pipeline):
+            launches, stages[pipeline] = check_stage(torch, dev, pipeline)
+            for key, n in launches.items():
+                total[key] += n
+    with phase("stages"):
+        stages["chain"] = check_stages(torch, dev)
     log(json.dumps({"paths": paths}))
     log(json.dumps({"checkpoint": ckpt}))
     log(json.dumps({"train": train}))
+    log(json.dumps({"stages": stages}))
     for entry, key in zip((k1, k4, k2, k3), COUNTED):
         entry["launches"] = total[key]
     for entry, key in zip((k2, k3), LP_COUNTED):

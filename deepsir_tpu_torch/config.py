@@ -1,14 +1,14 @@
 """Model, loss and training configuration for the port.
 
 A copy of the `ModelConfig` fields of deepsir_tpu/config.py:32-181 that the
-align forward and its training step read, of `LossConfig` and of the
-`TrainConfig` fields the training step reads, with the same names and
-defaults. The port implements one slice of the model configuration space
-(`check_supported`); any other value of an option raises
+three pipelines (label, feat, align) and their training steps read, of
+`LossConfig` and of the `TrainConfig` fields the training step reads, with
+the same names and defaults. The port implements one slice of the model
+configuration space (`check_supported`); any other value of an option raises
 `NotImplementedError` naming the option instead of silently taking another
 path. `from_run_config` reads the model block of the `config.json` a
-training run writes beside its checkpoints, `read_run_config` its model,
-loss and training blocks.
+training run writes beside its checkpoints, `read_run_config` its pipeline
+and its model, loss and training blocks.
 
 Precision: the port computes at fp32 grade whatever the precision fields
 say: fp32 torch matmuls with TF32 off (deepsir_tpu_torch/__init__.py), and
@@ -33,6 +33,7 @@ class ModelConfig:
     feat_len: int = 4                 # 3 (xyz) or 4 (xyz+reflectance)
     use_ppf: bool = False
     num_points: int = 18000           # points per cloud
+    num_sub: int = -1                 # feat: top-k scored points kept (<= 0: all)
     num_knn: int = 16                 # neighbours in the KNN graph
     sub_sampling_ratio: Tuple[int, ...] = (4, 4, 4, 4)
     d_out: Tuple[int, ...] = (16, 64, 128, 256)   # encoder dims per layer
@@ -72,11 +73,11 @@ _SLICE = {
     "matmul_precision": "highest",
 }
 
-# keys of a run's "model" block that cannot change the align forward or its
-# training step, with the reason; `from_run_config` drops them
+PIPELINES = ("label", "feat", "align")
+
+# keys of a run's "model" block that cannot change a forward or a training
+# step, with the reason; `from_run_config` drops them
 IGNORED_KEYS = {
-    "num_sub": "only forward_pair reads it (deepsir_tpu/models/network.py:272), "
-               "not the align forward",
     "knn_recall_target": "the port's KNN is exact, and so is JAX's on the CPU "
                          "(deepsir_tpu/config.py:61)",
     "matcher_method": "it picks Pallas or XLA for the same function "
@@ -88,8 +89,10 @@ IGNORED_KEYS = {
 
 @dataclass(frozen=True)
 class LossConfig:
-    """Loss weights (deepsir_tpu/config.py:LossConfig); the align loss reads
-    loss_type, the three wt_* weights, loss_discount_factor and thres_radius."""
+    """Loss weights (deepsir_tpu/config.py:LossConfig). The align loss reads
+    loss_type, the three wt_* weights, loss_discount_factor and thres_radius;
+    the feat loss thres_radius, det_loss_weight, circle_loss_tile and
+    overlap_det_mask."""
     loss_type: str = "mae"            # 'mae' | 'mse'
     wt_ptDist_loss: float = 1.0
     wt_inlier_loss: float = 1.0
@@ -116,10 +119,11 @@ class TrainConfig:
 
 
 class RunConfig(NamedTuple):
-    """What the align training step reads of a run's config.json."""
+    """What a training step reads of a run's config.json."""
     model: ModelConfig
     loss: LossConfig
     train: TrainConfig
+    pipeline: str = "align"           # one of PIPELINES
 
 
 # keys of a run's "data" and "train" blocks that the training step does not
@@ -178,7 +182,7 @@ def check_supported(cfg: ModelConfig) -> None:
     - `pyramid_order="morton"` with `knn_window_halo >= 1`;
     - `inlier_num_layers` L with 0 <= L < len(d_out), `inlier_num_knn` and
       `backbone_num_knn` >= 0, `refine_stride` >= 1, `absolute_pose_solve`;
-    - `fc_norm` "group" or "none", `randla_skips` "pre" or "post".
+    - `fc_norm` "group", "batch" or "none", `randla_skips` "pre" or "post".
     """
     for name, value in _SLICE.items():
         if getattr(cfg, name) != value:
@@ -202,8 +206,8 @@ def check_supported(cfg: ModelConfig) -> None:
             raise _unported(name, getattr(cfg, name), f"{name} >= 0")
     if cfg.refine_stride < 1:
         raise _unported("refine_stride", cfg.refine_stride, "refine_stride >= 1")
-    if cfg.fc_norm not in ("group", "none"):
-        raise _unported("fc_norm", cfg.fc_norm, "'group' and 'none'")
+    if cfg.fc_norm not in ("group", "batch", "none"):
+        raise _unported("fc_norm", cfg.fc_norm, "'group', 'batch' and 'none'")
     if cfg.randla_skips not in ("pre", "post"):
         raise _unported("randla_skips", cfg.randla_skips, "'pre' and 'post'")
     if not 0.0 <= cfg.dropout_rate < 1.0:
@@ -220,9 +224,9 @@ def _read_run(run: Union[str, os.PathLike, Mapping]) -> Mapping:
     if not isinstance(run, Mapping):
         path = Path(run)
         run = json.loads((path / "config.json" if path.is_dir() else path).read_text())
-    if run.get("pipeline") != "align":
-        raise ValueError(f"run config of pipeline {run.get('pipeline')!r}; "
-                         f"only 'align' is ported")
+    if run.get("pipeline") not in PIPELINES:
+        raise ValueError(f"run config of pipeline {run.get('pipeline')!r}, "
+                         f"not one of {PIPELINES}")
     return run
 
 
@@ -243,13 +247,13 @@ def from_json(text: str) -> ModelConfig:
 
 
 def from_run_config(run: Union[str, os.PathLike, Mapping]) -> ModelConfig:
-    """The align ModelConfig of a training run's `config.json`.
+    """The ModelConfig of a training run's `config.json`.
 
     `run` is the parsed JSON object, the file, or the run directory holding
     it. The fields of its "model" block map one for one; a field it lacks
     (older runs lack some) takes the default. A key of `IGNORED_KEYS` is
     dropped; any other unknown key raises ValueError naming it, as does a
-    run of another pipeline. The result passes `check_supported`.
+    pipeline outside PIPELINES. The result passes `check_supported`.
     """
     run = _read_run(run)
     cfg = ModelConfig(**_known_fields(run["model"], ModelConfig, IGNORED_KEYS, "model"))
@@ -258,8 +262,8 @@ def from_run_config(run: Union[str, os.PathLike, Mapping]) -> ModelConfig:
 
 
 def read_run_config(run: Union[str, os.PathLike, Mapping]) -> RunConfig:
-    """The model, loss and training configs of a training run's `config.json`
-    (`run` as for `from_run_config`).
+    """The model, loss and training configs and the pipeline of a training
+    run's `config.json` (`run` as for `from_run_config`).
 
     The "loss" block maps onto LossConfig and the "train" block onto
     TrainConfig, both field for field; of the "data" block only DATA_READ is
@@ -280,4 +284,4 @@ def read_run_config(run: Union[str, os.PathLike, Mapping]) -> RunConfig:
         # deepsir_tpu/config.py:DataConfig defaults
         radius = data.get("voxel_size", 0.3) * data.get("positive_pair_radius_multiplier", 3.0)
         loss = replace(loss, thres_radius=radius)
-    return RunConfig(from_run_config(run), loss, train)
+    return RunConfig(from_run_config(run), loss, train, run["pipeline"])

@@ -3,8 +3,12 @@
 A 1x1 convolution is an `nn.Linear` over the last axis. GroupNorm follows
 flax's channels-last semantics: statistics per sample (leading dim) and
 group, over every other axis and the channels of the group, eps 1e-5, with
-8 groups when C >= 64, else 4. `norm="none"` drops the GroupNorm (and its
-parameters), the layout of the FC stacks under `fc_norm="none"`.
+8 groups when C >= 64, else 4. `norm="batch"` is the JAX package's
+stateless batch norm (deepsir_tpu/models/layers.py:66-76): per-channel
+mean and biased variance over every non-channel axis of the call, eps 1e-5,
+then a per-channel `scale` and `bias` held by the unit itself; no running
+statistics, in training and inference alike. `norm="none"` drops the norm
+(and its parameters), the layout of the FC stacks under `fc_norm="none"`.
 """
 from __future__ import annotations
 
@@ -42,25 +46,42 @@ class GroupNorm(nn.Module):
         return y.reshape(x.shape) * self.weight + self.bias
 
 
-class ConvUnit(nn.Module):
-    """Linear (+ GroupNorm) (+ LeakyReLU 0.2), the reference's MLP2D block.
+def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Stateless batch norm of x (..., C): statistics per channel over every
+    other axis of this call."""
+    axes = tuple(range(x.dim() - 1))
+    var, mean = torch.var_mean(x, dim=axes, unbiased=False, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
-    norm is "group" or "none"."""
+
+class ConvUnit(nn.Module):
+    """Linear (+ norm) (+ LeakyReLU 0.2), the reference's MLP2D block.
+
+    norm is "group", "batch" or "none". Under "batch" the unit's own `scale`
+    and `bias` are the norm's affine (flax's `ConvUnit_i/scale`, `/bias`)."""
 
     def __init__(self, c_in: int, c_out: int, use_norm: bool = True,
                  use_act: bool = True, norm: str = "group"):
         super().__init__()
-        if norm not in ("group", "none"):
+        if norm not in ("group", "batch", "none"):
             raise NotImplementedError(f"ConvUnit norm={norm!r}")
         self.dense = nn.Linear(c_in, c_out)
         self.norm = (GroupNorm(num_groups(c_out), c_out)
                      if use_norm and norm == "group" else None)
+        if use_norm and norm == "batch":
+            self.scale = nn.Parameter(torch.ones(c_out))
+            self.bias = nn.Parameter(torch.zeros(c_out))
+        else:
+            self.scale = self.bias = None
         self.use_act = use_act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.dense(x)
         if self.norm is not None:
             x = self.norm(x)
+        elif self.scale is not None:
+            x = batch_norm(x, self.scale, self.bias)
         if self.use_act:
             x = leaky_relu(x)
         return x

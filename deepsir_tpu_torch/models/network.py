@@ -1,8 +1,15 @@
-"""The align network (deepsir_tpu/models/network.py): its forward, for
-inference and for training.
+"""The network of the three pipelines (deepsir_tpu/models/network.py): its
+forwards, for inference and for training.
 
-One module owns the RandLA feature extractor, the aggregation MLPs and the
-inlier RandLA. `forward_align` runs the backbone over both clouds, scores
+`Network(cfg, pipeline)` builds what the JAX package's `setup` builds for
+the pipeline: the RandLA feature extractor (label); and the aggregation
+MLPs (feat); and the inlier RandLA (align). `forward_pair` is the label and
+feat forward: the backbone over both clouds and, for feat, keypoint scores
+and the aggregated descriptors, optionally cut to the `num_sub` best-scored
+points. In feat training the backbone is frozen: it runs without a graph,
+as JAX's stop_gradient cuts it.
+
+`forward_align` runs the backbone over both clouds, scores
 keypoints, then `num_iter` registration iterations: re-aggregate the source
 descriptors at the current pose, nearest-descriptor search (kernel K2 on the
 card; K3, both directions, when the mutual gate or the `recip` channel needs
@@ -22,16 +29,18 @@ are computed without a graph.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
-from deepsir_tpu_torch.config import ModelConfig, check_supported, inlier_extras, replace
+from deepsir_tpu_torch.config import (PIPELINES, ModelConfig, check_supported, inlier_extras,
+                                      replace)
 from deepsir_tpu_torch.math import se3
 from deepsir_tpu_torch.models.layers import MLP
 from deepsir_tpu_torch.models.randla import RandLA
-from deepsir_tpu_torch.models.scoring import score_points
+from deepsir_tpu_torch.models.scoring import score_points, top_k_select
 from deepsir_tpu_torch.ops.distance import (mutual_gate, nearest_neighbour_bidirectional,
                                             nearest_neighbour_index)
 from deepsir_tpu_torch.ops.gather import gather_points
@@ -54,6 +63,22 @@ class PairBatch(NamedTuple):
     # ground-truth (src, ref) match lists padded with -1, for the list BCE
     matches: Optional[torch.Tensor] = None     # (B, M_cap, 2) int32
     num_matches: Optional[torch.Tensor] = None  # (B,) int32
+    # raw semantic labels 0..19 (0 ignored), for the label loss
+    labels_src: Optional[torch.Tensor] = None  # (B, N) int32
+    labels_ref: Optional[torch.Tensor] = None
+
+
+class PairOutput(NamedTuple):
+    """forward_pair's outputs. Under feat with num_sub > 0 the points,
+    descriptors and scores are the num_sub best-scored of each cloud."""
+    feat_src: torch.Tensor             # (B, N, C) descriptors
+    feat_ref: torch.Tensor
+    xyz_src: torch.Tensor              # (B, N, 3)
+    xyz_ref: torch.Tensor
+    logits_src: torch.Tensor           # (B, N, num_classes), all points
+    logits_ref: torch.Tensor
+    score_src: Optional[torch.Tensor] = None    # (B, N)
+    score_ref: Optional[torch.Tensor] = None
 
 
 class AlignOutput(NamedTuple):
@@ -92,25 +117,30 @@ def l2_normalize(f: torch.Tensor) -> torch.Tensor:
 
 
 class Network(nn.Module):
-    """The align pipeline's network. Other pipelines are not ported."""
+    """The network of one pipeline ("label", "feat" or "align")."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, pipeline: str = "align"):
         super().__init__()
         check_supported(cfg)
+        if pipeline not in PIPELINES:
+            raise ValueError(f"pipeline {pipeline!r} is not one of {PIPELINES}")
         self.cfg = cfg
+        self.pipeline = pipeline
         c = cfg.out_feat_dim
         self.feat_extractor = RandLA(cfg, cfg.num_classes, cfg.feat_len)
-        self.mlp_feat = MLP(c, (c, 128, c), norm=cfg.fc_norm)
-        self.mlp_att = MLP(4, (32, 64, 128, 256, c), norm=cfg.fc_norm)
-        self.mlp_proj = MLP(c, (c,), norm=cfg.fc_norm)
         # [src xyz ; matched ref xyz] plus one channel per extra feature
         self.extras = inlier_extras(cfg)
-        # inlier_num_layers > 0 keeps the first levels, which read the first
-        # levels of the same source pyramid
-        L = cfg.inlier_num_layers or len(cfg.d_out)
-        self.inlier_model = RandLA(
-            replace(cfg, d_out=cfg.d_out[:L], sub_sampling_ratio=cfg.sub_sampling_ratio[:L]),
-            1, 6 + len(self.extras))
+        if pipeline != "label":
+            self.mlp_feat = MLP(c, (c, 128, c), norm=cfg.fc_norm)
+            self.mlp_att = MLP(4, (32, 64, 128, 256, c), norm=cfg.fc_norm)
+            self.mlp_proj = MLP(c, (c,), norm=cfg.fc_norm)
+        if pipeline == "align":
+            # inlier_num_layers > 0 keeps the first levels, which read the
+            # first levels of the same source pyramid
+            L = cfg.inlier_num_layers or len(cfg.d_out)
+            self.inlier_model = RandLA(
+                replace(cfg, d_out=cfg.d_out[:L], sub_sampling_ratio=cfg.sub_sampling_ratio[:L]),
+                1, 6 + len(self.extras))
 
     def aggregate_side(self, xyz, feat, score):
         """One cloud's L2-normalised descriptor: proj(mlp_feat(f) + mlp_att([xyz; s]))."""
@@ -121,14 +151,16 @@ class Network(nn.Module):
         g = self.mlp_att(torch.cat([xyz, score[..., None]], dim=-1))
         return l2_normalize(self.mlp_proj(ff + g))
 
-    def backbone_pair(self, batch: PairBatch):
+    def backbone_pair(self, batch: PairBatch, train: bool = False,
+                      generator: Optional[torch.Generator] = None):
         """One backbone pass over src and ref stacked along the batch dim, on
-        the first `backbone_num_knn` neighbours when that is > 0."""
+        the first `backbone_num_knn` neighbours when that is > 0. In
+        training the dropout before `fc_label` draws from `generator`."""
         b = batch.points_src.shape[0]
         pts = torch.cat([batch.points_src, batch.points_ref], dim=0)
         pyr = slice_neighbours(concat_pyramids(batch.pyramid_src, batch.pyramid_ref),
                                self.cfg.backbone_num_knn)
-        feat, logits = self.feat_extractor(pts, pyr)
+        feat, logits = self.feat_extractor(pts, pyr, train=train, generator=generator)
         return feat[:b], logits[:b], feat[b:], logits[b:]
 
     def score_pair(self, batch: PairBatch, feat_src, feat_ref, logits_src, logits_ref):
@@ -143,6 +175,39 @@ class Network(nn.Module):
             torch.cat([batch.points_src[..., :3], batch.points_ref[..., :3]], dim=0),
             torch.cat([logits_src, logits_ref], dim=0), neigh)
         return score[:b], score[b:]
+
+    def forward_pair(self, batch: PairBatch, train: bool = False,
+                     generator: Optional[torch.Generator] = None) -> PairOutput:
+        """Features of both clouds, with keypoint scores for feat and align.
+        Under feat the descriptors are the
+        aggregated ones, cut to the `num_sub` best-scored points when
+        num_sub > 0 (equal scores keep the lower index); label and align
+        return the backbone features L2-normalised. Under feat the backbone
+        runs without a graph; otherwise the outputs keep theirs (the caller
+        picks `torch.no_grad` for inference, as `training.forward_step`
+        does). `train` runs the backbone's dropout from `generator`."""
+        cfg = self.cfg
+        with torch.no_grad() if self.pipeline == "feat" else nullcontext():
+            feat_src, logits_src, feat_ref, logits_ref = self.backbone_pair(
+                batch, train, generator)
+        xyz_src = batch.points_src[..., :3]
+        xyz_ref = batch.points_ref[..., :3]
+        score_src = score_ref = None
+        if self.pipeline != "label":
+            score_src, score_ref = self.score_pair(batch, feat_src, feat_ref,
+                                                   logits_src, logits_ref)
+            if self.pipeline == "feat":
+                feat_src = self.aggregate_side(xyz_src, feat_src, score_src)
+                feat_ref = self.aggregate_side(xyz_ref, feat_ref, score_ref)
+                if cfg.num_sub > 0:
+                    score_src, xyz_src, feat_src = top_k_select(score_src, cfg.num_sub,
+                                                                xyz_src, feat_src)
+                    score_ref, xyz_ref, feat_ref = top_k_select(score_ref, cfg.num_sub,
+                                                                xyz_ref, feat_ref)
+        if self.pipeline != "feat":
+            feat_src, feat_ref = l2_normalize(feat_src), l2_normalize(feat_ref)
+        return PairOutput(feat_src, feat_ref, xyz_src, xyz_ref, logits_src, logits_ref,
+                          score_src, score_ref)
 
     def _source(self, xyz0, score, ff, pyramid, mask) -> _Source:
         pyr = slice_neighbours(pyramid, self.cfg.inlier_num_knn)

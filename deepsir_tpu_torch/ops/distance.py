@@ -1,8 +1,12 @@
-"""Correspondence search and the mutual gate (deepsir_tpu/ops/distance.py).
+"""Pairwise distances, correspondence search and the mutual gate
+(deepsir_tpu/ops/distance.py).
 
-A CUDA tensor goes to kernel K2, or K3 for both directions
-(ops/cuda_match.py), a CPU tensor to their plain PyTorch versions. The
-searches carry no gradient.
+In a search a CUDA tensor goes to kernel K2, or K3 for both directions
+(ops/cuda_match.py), a CPU tensor to their plain PyTorch versions; the
+searches carry no gradient. `square_distance` is a differentiable torch
+op: the feat loss's descriptor distances, which the JAX package computes
+with a plain einsum too. It runs at fp32 grade (TF32 is off,
+deepsir_tpu_torch/__init__.py).
 """
 from __future__ import annotations
 
@@ -12,6 +16,14 @@ import torch
 
 from deepsir_tpu_torch.ops.cuda_match import match_argmin, match_argmin_bidirectional
 from deepsir_tpu_torch.ops.gather import gather_points
+
+
+def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared L2 by the |a|^2 + |b|^2 - 2ab expansion:
+    (..., N, C) x (..., M, C) -> (..., N, M)."""
+    d = -2.0 * torch.einsum("...nc,...mc->...nm", src, dst)
+    d = d + torch.sum(src * src, dim=-1)[..., :, None]
+    return d + torch.sum(dst * dst, dim=-1)[..., None, :]
 
 
 @torch.no_grad()

@@ -1,14 +1,17 @@
-"""Host batch -> device batch with both pyramids built on the device, and
-the align training step (deepsir_tpu/training.py).
+"""Host batch -> device batch with both pyramids built on the device, the
+label and feat serving forward, and the training step of all three
+pipelines (deepsir_tpu/training.py).
 
 One step (`train_step`, as `make_train_step` defines it): `device_batch`,
-`forward_align(train=True)` over `num_train_reg_iter` iterations,
-`scan_alignment_loss`, backward into the inlier net, and Adam on the
-`inlier_model` parameters only (the staged freeze of the align stage) at
-the staircase-decayed learning rate. A non-finite loss or gradient, or an
-invalid pose solve, skips the whole update: parameters, moments and count
-stay as they were, and so does the learning rate, which follows the count
-of applied updates.
+the pipeline's loss (`compute_loss`: label the semantic CE of both clouds,
+feat the circle and detector loss over `forward_pair`, align
+`scan_alignment_loss` over `forward_align(train=True)` with
+`num_train_reg_iter` iterations), backward, and Adam on the pipeline's
+trainable groups only (the staged freeze, `utils.params.TRAINABLE_GROUPS`)
+at the staircase-decayed learning rate. A non-finite loss or gradient, or
+an invalid pose solve, skips the whole update: parameters, moments and
+count stay as they were, and so does the learning rate, which follows the
+count of applied updates.
 """
 from __future__ import annotations
 
@@ -20,13 +23,15 @@ import torch
 from deepsir_tpu_torch.config import LossConfig, ModelConfig, RunConfig, TrainConfig, \
     check_supported
 from deepsir_tpu_torch.losses.align import scan_alignment_loss
-from deepsir_tpu_torch.models.network import ForwardOptions, Network, PairBatch
+from deepsir_tpu_torch.losses.detdes import det_des_loss
+from deepsir_tpu_torch.losses.semantic import semantic_loss
+from deepsir_tpu_torch.models.network import ForwardOptions, Network, PairBatch, PairOutput
 from deepsir_tpu_torch.ops.pyramid import build_cloud_pyramid
-from deepsir_tpu_torch.utils.params import TRAINABLE
+from deepsir_tpu_torch.utils.params import trainable_parameters
 
 _KEYS = ("points_src", "points_ref", "transform_gt")
 _MASKS = ("mask_src", "mask_ref")
-_MATCHES = ("matches", "num_matches")
+_INDICES = ("matches", "num_matches", "labels_src", "labels_ref")
 
 
 def _to_device(x, device) -> torch.Tensor:
@@ -48,25 +53,26 @@ def device_batch(cfg: ModelConfig, arrays: Dict[str, np.ndarray],
 
     Accepts `points_src`, `points_ref` (B, N, C) in fp32, fp16 or bf16 (the
     eval's `transfer_dtype`; upcast to fp32 on the device), `transform_gt`
-    (B, 3, 4), optionally the validity masks `mask_src`, `mask_ref` (B, N)
-    and the ground-truth match lists `matches` (B, M_cap, 2), padded with -1,
-    and `num_matches` (B,) of the list BCE; labels are not ported. Under
-    `pyramid_order="morton"` the caller passes curve-sorted clouds
-    (ops/morton.py::sort_clouds); this function does not sort.
+    (B, 3, 4), optionally the validity masks `mask_src`, `mask_ref` (B, N),
+    the ground-truth match lists `matches` (B, M_cap, 2), padded with -1,
+    and `num_matches` (B,) of the list BCE, and the semantic labels
+    `labels_src`, `labels_ref` (B, N) of the label loss (int32 on the
+    device). Under `pyramid_order="morton"` the caller passes curve-sorted
+    clouds (ops/morton.py::sort_clouds); this function does not sort.
     """
     check_supported(cfg)
-    extra = sorted(set(arrays) - set(_KEYS) - set(_MASKS) - set(_MATCHES))
+    extra = sorted(set(arrays) - set(_KEYS) - set(_MASKS) - set(_INDICES))
     if extra:
         raise NotImplementedError(f"device_batch arrays {extra}")
     src, ref = (_to_device(arrays[k], device) for k in ("points_src", "points_ref"))
     masks = {k: _to_device(arrays[k], device) for k in _MASKS if k in arrays}
-    matches = {k: torch.as_tensor(arrays[k], device=device).to(torch.int32)
-               for k in _MATCHES if k in arrays}
+    indices = {k: torch.as_tensor(arrays[k], device=device).to(torch.int32)
+               for k in _INDICES if k in arrays}
     return PairBatch(
         points_src=src, points_ref=ref,
         pyramid_src=build_cloud_pyramid(cfg, src[..., :3]),
         pyramid_ref=build_cloud_pyramid(cfg, ref[..., :3]),
-        transform_gt=_to_device(arrays["transform_gt"], device), **masks, **matches)
+        transform_gt=_to_device(arrays["transform_gt"], device), **masks, **indices)
 
 
 def lr_at(count: int, cfg: TrainConfig, steps_per_epoch: int) -> float:
@@ -85,10 +91,11 @@ def lr_at(count: int, cfg: TrainConfig, steps_per_epoch: int) -> float:
 
 
 def make_optimizer(model: Network) -> torch.optim.Adam:
-    """Adam on the inlier net's parameters only (optax.adam's update: betas
-    0.9 / 0.999, eps 1e-8 outside the square root); its learning rate is set
-    by `train_step` before each update."""
-    return torch.optim.Adam(getattr(model, TRAINABLE).parameters(), lr=0.0,
+    """Adam on the parameters that `model.pipeline` trains, and no other
+    (`utils.params.TRAINABLE_GROUPS`; optax.adam's update: betas 0.9 / 0.999,
+    eps 1e-8 outside the square root); its learning rate is set by
+    `train_step` before each update."""
+    return torch.optim.Adam([p for _, p in trainable_parameters(model)], lr=0.0,
                             betas=(0.9, 0.999), eps=1e-8)
 
 
@@ -100,10 +107,30 @@ def adam_count(optimizer: torch.optim.Optimizer) -> int:
 
 def compute_loss(model: Network, loss_cfg: LossConfig, batch: PairBatch,
                  generator: Optional[torch.Generator] = None):
-    """The align loss of one training forward (deepsir_tpu/training.py:
-    compute_loss): (total, {"loss", "invalid", "losses"}). The BCE labels
-    come from the match lists when the batch carries them, else from the
-    geometric test."""
+    """The loss of one training forward of `model.pipeline`
+    (deepsir_tpu/training.py:compute_loss): (total, aux).
+
+    label: `semantic_loss` of each cloud's logits, summed; aux {"loss",
+    "acc" (the two accuracies' mean), "invalid"}. feat: `det_des_loss` over
+    `forward_pair`; aux {"loss", "acc" (%), "invalid"}. align: the scan
+    alignment loss; aux {"loss", "invalid", "losses", "pred_idx"}, its BCE
+    labels from the match lists when the batch carries them, else from the
+    geometric test. `invalid` is a device boolean (always false but for
+    align's pose solves)."""
+    if model.pipeline != "align":
+        out = model.forward_pair(batch, train=True, generator=generator)
+        invalid = torch.zeros((), dtype=torch.bool, device=batch.points_src.device)
+        if model.pipeline == "feat":
+            loss, acc = det_des_loss(out.feat_src, out.feat_ref, out.xyz_src, out.xyz_ref,
+                                     out.score_src, out.score_ref, batch.transform_gt,
+                                     loss_cfg)
+        else:
+            if batch.labels_src is None or batch.labels_ref is None:
+                raise ValueError("the label loss needs labels_src and labels_ref")
+            loss_s, acc_s = semantic_loss(out.logits_src, batch.labels_src)
+            loss_r, acc_r = semantic_loss(out.logits_ref, batch.labels_ref)
+            loss, acc = loss_s + loss_r, (acc_s + acc_r) / 2
+        return loss, {"loss": loss, "acc": acc, "invalid": invalid}
     opts = ForwardOptions(num_iter=model.cfg.num_train_reg_iter)
     out = model.forward_align(batch, opts, train=True, generator=generator)
     use_lists = batch.matches is not None
@@ -119,20 +146,24 @@ def compute_loss(model: Network, loss_cfg: LossConfig, batch: PairBatch,
 def train_step(model: Network, optimizer: torch.optim.Optimizer, cfgs: RunConfig,
                arrays: Dict[str, np.ndarray], generator: Optional[torch.Generator],
                steps_per_epoch: int) -> Dict:
-    """One align training step on the device of `model`'s parameters.
+    """One training step of `model.pipeline` (which must be
+    `cfgs.pipeline`) on the device of `model`'s parameters.
 
-    Returns {"loss", "losses" (per-iteration terms), "invalid", "pred_idx"
-    (iters, B, N), "grads" (the inlier grads by parameter name, None if
-    none was computed), "lr" (of this step), "skipped"}. The skip guard
-    reads one device boolean on the host per step; the training step is
-    not captured in a CUDA graph.
+    Returns compute_loss's aux with its tensors detached ("losses" and
+    "pred_idx" under align, "acc" under label and feat), and "loss",
+    "invalid", "grads" (the trained parameters' grads by parameter name,
+    None where none was computed), "lr" (of this step) and "skipped". The
+    skip guard reads one device boolean on the host per step; the training
+    step is not captured in a CUDA graph.
     """
+    if model.pipeline != cfgs.pipeline:
+        raise ValueError(f"a {model.pipeline} network under a {cfgs.pipeline} run config")
     device = next(model.parameters()).device
     batch = device_batch(cfgs.model, arrays, device=device)
     optimizer.zero_grad(set_to_none=True)
     loss, aux = compute_loss(model, cfgs.loss, batch, generator)
     loss.backward()
-    named = list(getattr(model, TRAINABLE).named_parameters())
+    named = trainable_parameters(model)
     ok = torch.isfinite(loss.detach()) & ~aux["invalid"]
     for _, p in named:
         if p.grad is not None:
@@ -143,6 +174,17 @@ def train_step(model: Network, optimizer: torch.optim.Optimizer, cfgs: RunConfig
         for group in optimizer.param_groups:
             group["lr"] = lr
         optimizer.step()
-    return {"loss": loss.detach(), "losses": {k: v.detach() for k, v in aux["losses"].items()},
-            "invalid": aux["invalid"], "pred_idx": aux["pred_idx"],
-            "grads": {n: p.grad for n, p in named}, "lr": lr, "skipped": not applied}
+    out = {k: v.detach() for k, v in aux.items() if k != "losses"}
+    if "losses" in aux:
+        out["losses"] = {k: v.detach() for k, v in aux["losses"].items()}
+    return dict(out, grads={n: p.grad for n, p in named}, lr=lr, skipped=not applied)
+
+
+@torch.no_grad()
+def forward_step(model: Network, cfg: ModelConfig, arrays: Dict[str, np.ndarray]
+                 ) -> PairOutput:
+    """The label and feat serving path (deepsir_tpu/training.py:
+    make_forward_step): `device_batch` on the device of `model`'s
+    parameters, then `forward_pair` in inference, without a graph."""
+    device = next(model.parameters()).device
+    return model.forward_pair(device_batch(cfg, arrays, device=device))

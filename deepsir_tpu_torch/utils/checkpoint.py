@@ -6,9 +6,11 @@ either a whole training state `{"state": {"params", "opt_state", "step"},
 "step"}` or a bare params tree. It is decoded and encoded with the port's
 own msgpack code (utils/msgpack.py), so neither needs flax nor msgpack. A
 training state the port writes loads in the JAX package
-(`partial_restore`, `CheckPointManager.load` into the align TrainState),
-and the port resumes one the JAX package wrote: params, Adam moments and
-count.
+(`partial_restore`, `CheckPointManager.load` into the TrainState of its
+pipeline), and the port resumes one the JAX package wrote: params, Adam
+moments and count. `partial_restore` starts a stage of the staged regimen
+(label, then feat, then align) from the checkpoint of the stage before, as
+the JAX package's train.py does.
 """
 from __future__ import annotations
 
@@ -22,8 +24,9 @@ import numpy as np
 import torch
 
 from deepsir_tpu_torch.utils.msgpack import packb, unpackb
-from deepsir_tpu_torch.utils.params import (from_jax_params, load_jax_opt_state,
-                                            load_network, to_jax_opt_state, to_jax_params)
+from deepsir_tpu_torch.utils.params import (_flatten, flax_path, from_jax_params,
+                                            load_jax_opt_state, load_network,
+                                            to_jax_opt_state, to_jax_params)
 
 BEST = "model_best.msgpack"
 
@@ -46,10 +49,31 @@ def read_params(path: Union[str, os.PathLike]) -> Dict:
 
 
 def load_checkpoint(cfg: ModelConfig, path: Union[str, os.PathLike],
-                    device="cuda") -> Network:
-    """Network(cfg) on `device` in eval mode with the checkpoint's weights;
-    every stored leaf is used exactly once (`from_jax_params`)."""
-    return load_network(cfg, from_jax_params(read_params(path), Network(cfg)), device)
+                    device="cuda", pipeline: str = "align") -> Network:
+    """Network(cfg, pipeline) on `device` in eval mode with the checkpoint's
+    weights; every stored leaf is used exactly once (`from_jax_params`)."""
+    model = Network(cfg, pipeline)
+    return load_network(cfg, from_jax_params(read_params(path), model), device, pipeline)
+
+
+@torch.no_grad()
+def partial_restore(path: Union[str, os.PathLike], model: Network) -> int:
+    """Copy into `model` every stored parameter leaf whose flax path is a
+    parameter of `model` and whose shape matches; every other parameter
+    keeps its value (deepsir_tpu/utils/checkpoint.py:partial_restore, the
+    start of a stage from the stage before). Returns the leaves loaded."""
+    stored = _flatten(read_params(path))
+    loaded = 0
+    for key, param in model.state_dict().items():
+        path_, transpose = flax_path(key)
+        value = stored.get(("params",) + path_)
+        if not isinstance(value, np.ndarray):
+            continue
+        value = value.T if transpose else value
+        if tuple(value.shape) == tuple(param.shape):
+            param.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+            loaded += 1
+    return loaded
 
 
 def save_checkpoint(path: Union[str, os.PathLike], model: Network,

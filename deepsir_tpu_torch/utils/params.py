@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from deepsir_tpu_torch.config import ModelConfig
-from deepsir_tpu_torch.models.layers import GroupNorm
+from deepsir_tpu_torch.models.layers import ConvUnit, GroupNorm
 from deepsir_tpu_torch.models.network import Network
 
 _RENAME = {"dense": "Dense_0", "norm": "GroupNorm_0", "unit": "ConvUnit_0"}
@@ -72,8 +72,8 @@ def unflatten_params(flat: Mapping[str, np.ndarray], prefix: str = "param/") -> 
 
 
 def from_jax_params(params_np: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
-    """The flax `params` tree (numpy leaves) -> a state_dict for `model` (the
-    align `Network` or any of its submodules).
+    """The flax `params` tree (numpy leaves) -> a state_dict for `model` (a
+    `Network` of any pipeline, or any of its submodules).
 
     Every flax leaf is used exactly once: a torch parameter without a flax
     leaf, a leaf left over, or a shape mismatch raises ValueError.
@@ -109,11 +109,13 @@ def _he_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
                               generator=generator)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
-    """Seeded random parameters for Network(cfg), as flax initialises them:
-    he-normal Linear weights, zero biases, unit GroupNorm scales."""
+def init_params(cfg: ModelConfig, seed: int = 0,
+                pipeline: str = "align") -> Dict[str, torch.Tensor]:
+    """Seeded random parameters for Network(cfg, pipeline), as flax
+    initialises them: he-normal Linear weights, zero biases, unit norm
+    scales."""
     gen = torch.Generator().manual_seed(seed)
-    model = Network(cfg)
+    model = Network(cfg, pipeline)
     for module in model.modules():
         if isinstance(module, nn.Linear):
             _he_normal_(module.weight, gen)
@@ -122,13 +124,17 @@ def init_params(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
         elif isinstance(module, GroupNorm):
             nn.init.ones_(module.weight)
             nn.init.zeros_(module.bias)
+        elif isinstance(module, ConvUnit) and module.scale is not None:
+            nn.init.ones_(module.scale)
+            nn.init.zeros_(module.bias)
     return model.state_dict()
 
 
 def load_network(cfg: ModelConfig, state_dict: Mapping[str, torch.Tensor],
-                 device="cuda") -> Network:
-    """Network(cfg) on `device` in eval mode with `state_dict` loaded strictly."""
-    model = Network(cfg)
+                 device="cuda", pipeline: str = "align") -> Network:
+    """Network(cfg, pipeline) on `device` in eval mode with `state_dict`
+    loaded strictly."""
+    model = Network(cfg, pipeline)
     model.load_state_dict(state_dict, strict=True)
     return model.to(device).eval()
 
@@ -159,26 +165,34 @@ def _nest(flat: Mapping[Tuple[str, ...], object]) -> Dict:
 
 
 def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
-    """A state_dict of the align `Network` -> the flax variables
+    """A state_dict of a `Network` -> the flax variables
     {"params": tree} with numpy leaves: the inverse of `from_jax_params`,
     every entry used once, Linear weights transposed back to kernels."""
     return {"params": _nest(dict(_to_flax_leaf(k, v) for k, v in state_dict.items()))}
 
 
-# the optax state of deepsir_tpu/training.py::make_optimizer for align:
-# multi_transform({"train": adam(schedule), "freeze": set_to_zero()}) over
-# the params, "train" on inlier_model's leaves; adam is chain(scale_by_adam
-# (count, mu, nu), scale_by_schedule (count)), and a masked-out leaf of mu
-# and nu is stored as an empty map
-TRAINABLE = "inlier_model"      # deepsir_tpu/training.py:37-41, align
+# the parameter groups each pipeline trains (deepsir_tpu/training.py:37-41).
+# The optax state of its make_optimizer is multi_transform({"train":
+# adam(schedule), "freeze": set_to_zero()}) over the params, a leaf "train"
+# when any key of its path is in the pipeline's group; adam is chain(
+# scale_by_adam (count, mu, nu), scale_by_schedule (count)), and a frozen
+# leaf of mu and nu is stored as an empty map
+TRAINABLE_GROUPS = {
+    "label": {"feat_extractor"},
+    "feat": {"mlp_feat", "mlp_att", "mlp_proj"},
+    "align": {"inlier_model"},
+}
 
 
-def _named_trainable(model: nn.Module):
-    return [(f"{TRAINABLE}.{name}", p)
-            for name, p in getattr(model, TRAINABLE).named_parameters()]
+def trainable_parameters(model: Network):
+    """[(name, parameter)] of the leaves `model`'s pipeline trains, in
+    `named_parameters` order."""
+    group = TRAINABLE_GROUPS[model.pipeline]
+    return [(name, p) for name, p in model.named_parameters()
+            if group & set(flax_path(name)[0])]
 
 
-def to_jax_opt_state(model: nn.Module, optimizer: torch.optim.Optimizer) -> Dict:
+def to_jax_opt_state(model: Network, optimizer: torch.optim.Optimizer) -> Dict:
     """The Adam state of `optimizer` (made by training.make_optimizer) as the
     JAX package's optax state tree: exp_avg -> mu, exp_avg_sq -> nu, step ->
     both int32 counts; frozen leaves of mu and nu are empty maps. Before the
@@ -187,7 +201,7 @@ def to_jax_opt_state(model: nn.Module, optimizer: torch.optim.Optimizer) -> Dict
     frozen = {flax_path(k)[0]: {} for k in model.state_dict()}
     mu, nu = dict(frozen), dict(frozen)
     count = 0
-    for key, p in _named_trainable(model):
+    for key, p in trainable_parameters(model):
         state = optimizer.state.get(p, {})
         path = flax_path(key)[0]
         for tree, name in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
@@ -201,12 +215,12 @@ def to_jax_opt_state(model: nn.Module, optimizer: torch.optim.Optimizer) -> Dict
                                                        "1": {"count": counts.copy()}}}}}
 
 
-def load_jax_opt_state(opt_state: Mapping, model: nn.Module,
+def load_jax_opt_state(opt_state: Mapping, model: Network,
                        optimizer: torch.optim.Optimizer) -> int:
     """Set `optimizer`'s Adam state from the JAX package's optax state tree
     (the layout `to_jax_opt_state` writes): mu -> exp_avg, nu -> exp_avg_sq,
-    count -> step. Every inlier leaf is read once and every frozen leaf must
-    be an empty map; returns the count."""
+    count -> step. Every trained leaf of the model's pipeline is read once
+    and every frozen leaf must be an empty map; returns the count."""
     train = opt_state["inner_states"]["train"]["inner_state"]
     count = int(train["0"]["count"])
     if int(train["1"]["count"]) != count:
@@ -215,7 +229,7 @@ def load_jax_opt_state(opt_state: Mapping, model: nn.Module,
     moments = {}
     for name in ("mu", "nu"):
         flat = _flatten(train["0"][name]["params"])
-        for key, p in _named_trainable(model):
+        for key, p in trainable_parameters(model):
             path, transpose = flax_path(key)
             arr = flat.pop(path, None)
             if not isinstance(arr, np.ndarray):
@@ -227,8 +241,9 @@ def load_jax_opt_state(opt_state: Mapping, model: nn.Module,
             moments[(name, key)] = torch.tensor(arr, dtype=p.dtype, device=p.device)
         left = [p for p, v in flat.items() if not (isinstance(v, dict) and not v)]
         if left:
-            raise ValueError(f"{name}: leaves outside {TRAINABLE}: {left[:3]}")
-    names = {id(p): key for key, p in _named_trainable(model)}
+            raise ValueError(f"{name}: moments outside the {model.pipeline} groups "
+                             f"{sorted(TRAINABLE_GROUPS[model.pipeline])}: {left[:3]}")
+    names = {id(p): key for key, p in trainable_parameters(model)}
     for group in optimizer.param_groups:
         on_device = group.get("capturable") or group.get("fused")
         for p in group["params"]:

@@ -1,9 +1,11 @@
-"""Where the time goes in the PyTorch port's align inference forward, or in
-its training step, on one CUDA card.
+"""Where the time goes in the PyTorch port's align inference forward, in
+its training step, or in the label and feat pipelines, on one CUDA card.
 
     python scripts/profile_torch_align.py [--path default] [--batch 1] [--reps 3]
                                           [--out FILE]
     python scripts/profile_torch_align.py --train {parity,default,F} [--reps 3]
+                                          [--out FILE]
+    python scripts/profile_torch_align.py --stage {label,feat} [--reps 3]
                                           [--out FILE]
 
 Drives `device_batch` -> `Network.forward_align` at chip_smoke.py's full-width
@@ -22,6 +24,12 @@ tests/data/torch_parity_train.npz (B=2); `default` and `F` train seeded
 weights at 18000 points (B=1, dropout 0.5). It prints the host time per step
 (median), the peak of `torch.cuda.max_memory_allocated`, and the profile of
 one step.
+With --stage, the staged regimen's label or feat checkpoint at 18000 points
+(B=1) under its run config, as chip_smoke.py's "label" and "feat" phases
+run it (feat: circle_loss_tile 1500): the host time per
+`training.forward_step` and per `training.train_step` (dropout 0.5 from a
+seeded generator; medians after a warm-up), the peak of
+`torch.cuda.max_memory_allocated` of each, and the profile of one of each.
 With --out, the same numbers are also written there as JSON.
 """
 from __future__ import annotations
@@ -47,6 +55,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--train", default=None, choices=["parity", *chip_smoke.TRAIN_CASES],
                     help="profile the training step instead of the forward")
+    ap.add_argument("--stage", default=None, choices=["label", "feat"],
+                    help="profile the label or feat pipeline's forward and training step")
     ap.add_argument("--out", type=Path, default=None, help="JSON file to write")
     args = ap.parse_args()
 
@@ -57,6 +67,8 @@ def main() -> int:
         return 1
     if args.train:
         return profile_train(args, torch.device("cuda", 0))
+    if args.stage:
+        return profile_stage(args, torch.device("cuda", 0))
     from deepsir_tpu_torch.models.network import ForwardOptions
     from deepsir_tpu_torch.training import device_batch
     from deepsir_tpu_torch.utils.params import init_params, load_network
@@ -196,6 +208,63 @@ def profile_train(args, dev) -> int:
     return report(args, {"train": args.train, "points": int(n), "batch": int(b),
                          "ms_per_step": step_ms, "step_ms": times,
                          "max_memory_allocated": int(peak), **prof})
+
+
+def _timed_runs(fn, feeds):
+    """Host ms of fn(arrays) for each feed, each ended by a synchronize, and
+    the peak of max_memory_allocated over them."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for arrays in feeds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(arrays)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, torch.cuda.max_memory_allocated()
+
+
+def profile_stage(args, dev) -> int:
+    """ms per forward and per training step of a staged checkpoint, peak
+    memory of each and the profile of one of each."""
+    import torch
+    import chip_smoke
+    from deepsir_tpu_torch.models.network import Network
+    from deepsir_tpu_torch.training import forward_step, make_optimizer, train_step
+    from deepsir_tpu_torch.utils.checkpoint import read_params
+    from deepsir_tpu_torch.utils.params import from_jax_params
+    cfgs = chip_smoke.stage_config(args.stage, chip_smoke.N_POINTS)
+    model = Network(cfgs.model, args.stage)
+    model.load_state_dict(from_jax_params(
+        read_params(chip_smoke.STAGE_RUNS[args.stage] / "ckpt"), model))
+    model.to(dev)
+    rng = np.random.default_rng(0)
+    feeds = [chip_smoke.stage_arrays(rng, args.stage, cfgs.model.feat_len)
+             for _ in range(args.reps + 2)]
+    record = {"stage": args.stage, "points": chip_smoke.N_POINTS, "batch": 1,
+              "circle_loss_tile": cfgs.loss.circle_loss_tile}
+    fwd_ms, fwd_peak = _timed_runs(lambda a: forward_step(model, cfgs.model, a), feeds[:-1])
+    print(f"{args.stage} forward: {np.median(fwd_ms[1:]):.3f} ms (median of {args.reps} "
+          f"after a warm-up; {[round(t, 3) for t in fwd_ms]}), peak memory "
+          f"{fwd_peak / 2**30:.3f} GiB", flush=True)
+    record["forward"] = {"ms": float(np.median(fwd_ms[1:])), "all_ms": fwd_ms,
+                         "max_memory_allocated": int(fwd_peak),
+                         **profile_window(lambda: forward_step(model, cfgs.model, feeds[-1]))}
+    opt = make_optimizer(model)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def step(arrays):
+        if train_step(model, opt, cfgs, arrays, gen, chip_smoke.STAGE_STEPS_PER_EPOCH)["skipped"]:
+            raise AssertionError(f"{args.stage}: a step was skipped")
+    step_ms, step_peak = _timed_runs(step, feeds[:-1])
+    print(f"{args.stage} step: {np.median(step_ms[1:]):.3f} ms (median of {args.reps} after "
+          f"a warm-up; {[round(t, 3) for t in step_ms]}), peak memory "
+          f"{step_peak / 2**30:.3f} GiB", flush=True)
+    record["step"] = {"ms": float(np.median(step_ms[1:])), "all_ms": step_ms,
+                      "max_memory_allocated": int(step_peak),
+                      **profile_window(lambda: step(feeds[-1]))}
+    return report(args, record)
 
 
 if __name__ == "__main__":

@@ -10,10 +10,14 @@ PyTorch port against it where JAX is absent:
   forward on their run's synthetic pairs;
 - tests/data/torch_parity_train.npz: two training steps of the staged align
   checkpoint, resumed with its Adam state, on 2 of those pairs at 1024
-  points (`train`).
+  points (`train`);
+- tests/data/torch_parity_stages.npz: the staged label and feat checkpoints'
+  eval forward and one resumed training step each, on synthetic pairs
+  with labels at 1024 points, and the leaf counts of the staged chain
+  (`stages`).
 
 Run on the CPU with JAX installed:
-    python tests/data/make_torch_parity_fixture.py [small] [paths] [ckpt] [train]
+    python tests/data/make_torch_parity_fixture.py [small] [paths] [ckpt] [train] [stages]
 
 Each file holds the model config (`model_json`), the flax params
 (`param/<path>`), the input arrays, both clouds' pyramid indices and the
@@ -122,14 +126,18 @@ def build_paths(seed: int = SEED) -> Dict[str, np.ndarray]:
 
 
 def run_config(ckpt: str = CKPTS[0], num_points: int = None):
-    """The JAX Config of a tracked run's config.json, at `num_points`."""
-    from deepsir_tpu.config import Config, DataConfig, EvalConfig, ModelConfig
+    """The JAX Config of a tracked run's config.json (its pipeline, model,
+    data, loss, train and eval blocks), at `num_points`."""
+    from deepsir_tpu.config import (Config, DataConfig, EvalConfig, LossConfig, ModelConfig,
+                                    TrainConfig)
     run = json.loads((ROOT / ckpt / "config.json").read_text())
     model = {k: tuple(v) if isinstance(v, list) else v for k, v in run["model"].items()}
     if num_points is not None:
         model["num_points"] = num_points
-    return Config(pipeline="align", model=ModelConfig(**model),
-                  data=DataConfig(**run["data"]), eval=EvalConfig(**run["eval"])).resolved()
+    return Config(pipeline=run["pipeline"], model=ModelConfig(**model),
+                  data=DataConfig(**run["data"]), loss=LossConfig(**run["loss"]),
+                  train=TrainConfig(**run["train"]),
+                  eval=EvalConfig(**run["eval"])).resolved()
 
 
 def ckpt_pairs(num_points: int, pairs: int) -> Dict[str, np.ndarray]:
@@ -317,11 +325,178 @@ def build_train() -> Dict[str, np.ndarray]:
     return fixture
 
 
-def main(names=("small", "paths", "ckpt", "train")) -> None:
+OUT_STAGES = Path(__file__).with_name("torch_parity_stages.npz")
+# the staged regimen's label and feat runs; the align run is CKPTS[0]
+STAGES = {"label": "logs_r3/staged_po/260817_185436_label",
+          "feat": "logs_r3/staged_po/260817_185849_feat"}
+STAGE_PAIRS = 2
+FEAT_ROW_STRIDE = 8       # the fixture keeps every 8th descriptor row (size)
+# a trained leaf above this many entries is summarised (the file's size)
+STAGE_FULL_ENTRIES = 512
+
+
+def stage_pairs(num_points: int, pairs: int) -> Dict[str, np.ndarray]:
+    """The first `pairs` test pairs of the label run's synthetic data at
+    `num_points`, with their semantic labels: the arrays device_batch
+    takes (clouds and labels tiled to num_points, as the data layer pads)."""
+    from deepsir_tpu.data.base import make_pair_arrays
+    from deepsir_tpu.data.datasets import get_test_dataset
+    ds = get_test_dataset(run_config(STAGES["label"], num_points))
+    batch = make_pair_arrays([ds.get_sample(i, np.random.default_rng(i)) for i in range(pairs)])
+    return {k: batch[k] for k in ("points_src", "points_ref", "transform_gt",
+                                  "labels_src", "labels_ref")}
+
+
+def _exact_batch(cfg, arrays):
+    from deepsir_tpu.models.network import PairBatch
+    m = cfg.model
+    pyramids = [exact_pyramid(arrays[f"points_{s}"][..., :3], m.num_knn, m.sub_sampling_ratio)
+                for s in ("src", "ref")]
+    return PairBatch(arrays["points_src"], arrays["points_ref"], *pyramids,
+                     arrays["transform_gt"], labels_src=arrays["labels_src"],
+                     labels_ref=arrays["labels_ref"])
+
+
+def stage_outputs(pipeline: str, arrays) -> Dict[str, np.ndarray]:
+    """The JAX eval forward (make_forward_step: forward_pair, train=False)
+    of a staged checkpoint over exact pyramids, and its loss: label the
+    logits (and the semantic loss and accuracy over the labels); feat the
+    scores, every FEAT_ROW_STRIDE-th descriptor row and det_des_loss."""
+    import jax
+    from deepsir_tpu.losses import det_des_loss, semantic_loss
+    from deepsir_tpu.models import Network
+    from deepsir_tpu.utils.checkpoint import partial_restore
+    from deepsir_tpu.training import device_batch
+    cfg = run_config(STAGES[pipeline], arrays["points_src"].shape[1])
+    model = Network(cfg.model, pipeline=pipeline)
+    target = jax.eval_shape(lambda a: model.init(jax.random.PRNGKey(0),
+                                                 device_batch(cfg, a)), arrays)
+    target = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), target)
+    params, loaded = partial_restore(str(ROOT / STAGES[pipeline] / "ckpt"), target)
+    assert loaded == len(jax.tree_util.tree_leaves(target)), loaded
+    _, out = jax.device_get(jax.jit(lambda p, b: model.apply(p, b, train=False))(
+        params, _exact_batch(cfg, arrays)))
+    if pipeline == "label":
+        losses = [semantic_loss(out.logits_src, arrays["labels_src"]),
+                  semantic_loss(out.logits_ref, arrays["labels_ref"])]
+        return {"logits_src": out.logits_src, "logits_ref": out.logits_ref,
+                "loss": np.asarray(losses[0][0] + losses[1][0]),
+                "acc": np.asarray((losses[0][1] + losses[1][1]) / 2)}
+    loss, acc = det_des_loss(out.feat_src, out.feat_ref, out.xyz_src, out.xyz_ref,
+                             out.score_src, out.score_ref, arrays["transform_gt"], cfg.loss)
+    return {"score_src": out.score_src, "score_ref": out.score_ref,
+            "feat_src_rows": out.feat_src[:, ::FEAT_ROW_STRIDE],
+            "feat_ref_rows": out.feat_ref[:, ::FEAT_ROW_STRIDE],
+            "loss": np.asarray(loss), "acc": np.asarray(acc)}
+
+
+def stage_step(pipeline: str, arrays) -> Dict[str, np.ndarray]:
+    """One training step of a staged checkpoint resumed with its Adam state
+    (CheckPointManager.load), its run config at dropout_rate 0, over exact
+    pyramids: `jax.value_and_grad(compute_loss)`, then `tx.update`, in
+    float32 and again with every float upcast to float64 (x64). Stores the
+    count, the float32 loss and accuracy, the lr and `skipped`; the trained
+    leaves' grads and params after the step of the float64 run
+    (chip_smoke.summarize_leaf, whole up to STAGE_FULL_ENTRIES entries);
+    and how far the float32 run's grads are from them (the largest
+    chip_smoke.leaf_error): the feat step's float32 grads of mlp_feat are
+    ~1e-3 of the leaf's scale off, more than the port's, so the float64 run
+    is the reference."""
+    import jax
+    import optax
+    from flax.traverse_util import flatten_dict
+    from chip_smoke import leaf_error, summarize_leaf
+    from deepsir_tpu.config import replace
+    from deepsir_tpu.training import (TRAINABLE_GROUPS, compute_loss, create_train_state,
+                                      make_lr_schedule, make_optimizer)
+    from deepsir_tpu.utils.checkpoint import CheckPointManager
+    cfg = run_config(STAGES[pipeline], arrays["points_src"].shape[1])
+    cfg = replace(cfg, model=replace(cfg.model, dropout_rate=0.0))
+    model, template = create_train_state(cfg, arrays, TRAIN_STEPS_PER_EPOCH)
+    ckpt = str(ROOT / STAGES[pipeline] / "ckpt")
+    state, _ = CheckPointManager(ckpt).load(ckpt, template)
+    tx = make_optimizer(cfg, TRAIN_STEPS_PER_EPOCH)
+    rng = jax.random.PRNGKey(0)
+
+    def step(params, opt_state, batch):
+        (loss, aux), grads = jax.jit(jax.value_and_grad(
+            lambda q: compute_loss(cfg, model, q, batch, None, True, rng), has_aux=True))(params)
+        updates, _ = tx.update(grads, opt_state, params)
+        return jax.device_get((loss, aux, grads, optax.apply_updates(params, updates)))
+
+    def trained(tree):
+        flat = flatten_dict(tree["params"])
+        return {"/".join(k): np.asarray(v) for k, v in flat.items()
+                if set(k) & TRAINABLE_GROUPS[pipeline]}
+
+    batch = _exact_batch(cfg, arrays)
+    loss, aux, grads32, _ = step(state.params, state.opt_state, batch)
+    with jax.enable_x64(True):
+        def f64(tree):
+            return jax.tree_util.tree_map(
+                lambda a: np.asarray(a, np.float64) if np.asarray(a).dtype.kind == "f" else a,
+                tree)
+        _, _, grads, params = step(f64(state.params), f64(state.opt_state), f64(batch))
+    ok = np.isfinite(loss) and all(np.isfinite(g).all()
+                                   for g in jax.tree_util.tree_leaves(grads32))
+    count = int(state.opt_state.inner_states["train"].inner_state[1].count)
+    grads, grads32 = trained(grads), trained(grads32)
+    fixture = {"count": np.asarray(count), "step_loss": np.asarray(loss),
+               "step_acc": np.asarray(aux["acc"]), "step_skipped": np.asarray(not ok),
+               "step_lr": np.asarray(make_lr_schedule(cfg, TRAIN_STEPS_PER_EPOCH)(count)),
+               "jax_fp32_grad_rel_err": np.asarray(max(
+                   leaf_error(grads32[k], {"full": grads[k]}) for k in grads))}
+    for prefix, leaves in (("grad", grads), ("param1", trained(params))):
+        for path, leaf in leaves.items():
+            for field, value in summarize_leaf(leaf, STAGE_FULL_ENTRIES).items():
+                fixture[f"{prefix}/{path}/{field}"] = value
+    return fixture
+
+
+def stage_chain() -> Dict[str, np.ndarray]:
+    """The leaves JAX's partial_restore loads along the staged chain: label
+    into a feat model, feat into an align model, and each stage into its own."""
+    import jax
+    from deepsir_tpu.models import Network
+    from deepsir_tpu.training import device_batch
+    from deepsir_tpu.utils.checkpoint import partial_restore
+    runs = dict(STAGES, align=CKPTS[0])
+    arrays = stage_pairs(1024, 1)
+    counts = {}
+    for into, source in (("feat", "label"), ("align", "feat"), ("label", "label"),
+                         ("feat", "feat"), ("align", "align")):
+        cfg = run_config(runs[into], 1024)
+        model = Network(cfg.model, pipeline=into)
+        target = jax.eval_shape(lambda a: model.init(jax.random.PRNGKey(0),
+                                                     device_batch(cfg, a)), arrays)
+        target = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), target)
+        _, loaded = partial_restore(str(ROOT / runs[source] / "ckpt"), target)
+        counts[f"chain/{source}->{into}"] = np.asarray(
+            [loaded, len(jax.tree_util.tree_leaves(target))])
+    return counts
+
+
+def build_stages() -> Dict[str, np.ndarray]:
+    """The stages fixture's arrays: the pairs (with labels), each staged
+    checkpoint's forward (`<pipeline>/...`) and resumed step
+    (`<pipeline>_step/...`), and the chain's leaf counts."""
+    arrays = stage_pairs(1024, STAGE_PAIRS)
+    fixture = dict(arrays, stages=np.asarray([STAGES["label"], STAGES["feat"], CKPTS[0]]))
+    for pipeline in ("label", "feat"):
+        for key, value in stage_outputs(pipeline, arrays).items():
+            fixture[f"{pipeline}/{key}"] = np.asarray(value)
+        for key, value in stage_step(pipeline, arrays).items():
+            fixture[f"{pipeline}_step/{key}"] = np.asarray(value)
+    fixture.update(stage_chain())
+    return fixture
+
+
+def main(names=("small", "paths", "ckpt", "train", "stages")) -> None:
     import jax
     jax.config.update("jax_platforms", "cpu")
     makers = {"small": (OUT, build), "paths": (OUT_PATHS, build_paths),
-              "ckpt": (OUT_CKPT, build_ckpt), "train": (OUT_TRAIN, build_train)}
+              "ckpt": (OUT_CKPT, build_ckpt), "train": (OUT_TRAIN, build_train),
+              "stages": (OUT_STAGES, build_stages)}
     for name in names:
         out, make = makers[name]
         np.savez_compressed(out, **make())
@@ -331,4 +506,4 @@ def main(names=("small", "paths", "ckpt", "train")) -> None:
 if __name__ == "__main__":
     import sys
     sys.path.insert(0, str(ROOT))
-    main(sys.argv[1:] or ("small", "paths", "ckpt", "train"))
+    main(sys.argv[1:] or ("small", "paths", "ckpt", "train", "stages"))

@@ -127,7 +127,7 @@ def test_align_outputs(jax_run, port_run):
 def test_device_batch_rejects_unported_keys(jax_run):
     fx, _ = jax_run
     arrays = {k: fx[k] for k in INPUTS}
-    # the validity masks are ported; labels are not
-    arrays["labels_src"] = np.zeros(fx["points_src"].shape[:2], np.int32)
-    with pytest.raises(NotImplementedError, match="labels_src"):
+    # the validity masks and the labels are ported; per-point normals are not
+    arrays["normals_src"] = np.zeros(fx["points_src"].shape[:2] + (3,), np.float32)
+    with pytest.raises(NotImplementedError, match="normals_src"):
         device_batch(ModelConfig(**F.MODEL), arrays, device="cpu")

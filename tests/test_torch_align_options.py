@@ -11,7 +11,10 @@ Cases, at the narrow width of tests/test_torch_align_paths.py:
 - the validity masks of a ragged pair, padded by tiling as the data layer
   pads it (the padding makes exact ties, so this case runs the port over
   JAX's pyramids, which the port's own are held against tie for tie);
-- `fc_norm="none"` and `randla_skips="post"`, which change the param tree;
+- `fc_norm="none"`, `fc_norm="batch"` (the stateless batch norm, its
+  statistics over each call's points: the backbone's both clouds, each
+  side's aggregation) and `randla_skips="post"`, which change the param
+  tree;
 - fp16 and bf16 point payloads into `device_batch`;
 - all of the above that combine, with the flagship's channels and gate (its
   masks zero the tail rows of distinct points).
@@ -63,7 +66,8 @@ FLAGSHIP = dict(inlier_extra_feats="dist,recip", clip_weight_thresh=0.05,
 # "tiled" pad the clouds' tails by tiling their heads, as the data layer
 # does, "distinct" only mark the tails as padding; the cases
 # whose param tree differs from the default one are named in NEW_TREES
-NEW_TREES = ("inlier_num_layers", "deploy", "fc_norm-none", "randla_skips-post", "combined")
+NEW_TREES = ("inlier_num_layers", "deploy", "fc_norm-none", "fc_norm-batch",
+             "randla_skips-post", "combined")
 CASES = {
     "inlier_num_knn": (dict(F.MODEL, inlier_num_knn=4), 1, False, None),
     "backbone_num_knn": (dict(F.MODEL, backbone_num_knn=4), 1, False, None),
@@ -76,6 +80,7 @@ CASES = {
     "absolute_pose_solve": (dict(ITER3, absolute_pose_solve=True), 1, False, None),
     "masks": (F.MODEL, 1, "tiled", None),
     "fc_norm-none": (dict(F.MODEL, fc_norm="none"), 1, False, None),
+    "fc_norm-batch": (dict(F.MODEL, fc_norm="batch"), 1, False, None),
     "randla_skips-post": (dict(F.MODEL, randla_skips="post"), 1, False, None),
     "payload-float16": (F.MODEL, 1, False, np.float16),
     "payload-bfloat16": (F.MODEL, 1, False, ml_dtypes.bfloat16),
@@ -261,8 +266,8 @@ def test_masked_rows_take_no_vote(runs):
 
 def test_other_arrays_still_raise():
     cfg = ModelConfig(**F.MODEL)
-    arrays = dict(F.make_arrays(F.SEED, F.MODEL), labels_src=np.zeros((2, 1024), np.int32))
-    with pytest.raises(NotImplementedError, match="labels_src"):
+    arrays = dict(F.make_arrays(F.SEED, F.MODEL), normals_src=np.zeros((2, 1024, 3), np.float32))
+    with pytest.raises(NotImplementedError, match="normals_src"):
         device_batch(cfg, arrays, device="cpu")
 
 

@@ -1,7 +1,8 @@
-"""`config.from_run_config` and `config.read_run_config`: every tracked align
-run's config.json maps to a port ModelConfig that `check_supported` admits,
-and to the LossConfig and TrainConfig fields the training step reads, field
-for field as the JAX package reads them; unknown keys, another pipeline and
+"""`config.from_run_config` and `config.read_run_config`: every tracked
+run's config.json (120 align, 8 label, 4 feat) maps to a port ModelConfig
+that `check_supported` admits, and to its pipeline and the LossConfig and
+TrainConfig fields the training step reads, field for field as the JAX
+package reads them; unknown keys, a pipeline outside the three and
 precision the port does not compute raise."""
 import dataclasses
 import json
@@ -62,19 +63,20 @@ def test_an_unknown_key_raises_naming_it():
 
 
 def test_each_ignored_key_is_named_with_its_reason():
-    assert set(IGNORED_KEYS) == {"num_sub", "knn_recall_target", "matcher_method",
+    assert set(IGNORED_KEYS) == {"knn_recall_target", "matcher_method",
                                  "no_slack", "num_sk_iter"}
     for key, reason in {**IGNORED_KEYS, **IGNORED_DATA_KEYS, **IGNORED_TRAIN_KEYS}.items():
         assert len(reason) > 20, key
     run = json.loads(STAGED.read_text())
     base = from_run_config(run)
-    for key, value in (("num_sub", 128), ("knn_recall_target", 1.0),
-                       ("matcher_method", "xla"), ("no_slack", True), ("num_sk_iter", 9)):
+    for key, value in (("knn_recall_target", 1.0), ("matcher_method", "xla"),
+                       ("no_slack", True), ("num_sk_iter", 9)):
         changed = json.loads(json.dumps(run))
         changed["model"][key] = value
         assert from_run_config(changed) == base, key
-    # the training step reads these two: they are fields now
-    for key, value in (("dropout_rate", 0.1), ("num_train_reg_iter", 3)):
+    # the training step reads these two and forward_pair num_sub: they are
+    # fields now
+    for key, value in (("dropout_rate", 0.1), ("num_train_reg_iter", 3), ("num_sub", 128)):
         changed = json.loads(json.dumps(run))
         changed["model"][key] = value
         assert getattr(from_run_config(changed), key) == value, key
@@ -97,13 +99,35 @@ def test_scoped_precision_fields_are_kept(value):
 
 
 @pytest.mark.parametrize("path", OTHER)
+def test_label_and_feat_configs_read_as_jax(path):
+    """The label and feat configs read, with their pipeline, field for field
+    as the JAX package reads them, and build their pipeline's network."""
+    run = json.loads((ROOT / path).read_text())
+    cfgs = read_run_config(ROOT / path)
+    assert cfgs.pipeline == run["pipeline"] in ("label", "feat")
+    assert cfgs.model == from_run_config(run)
+    jax_cfg = _jax_config(run)
+    for block, cls in (("model", ModelConfig), ("loss", LossConfig), ("train", TrainConfig)):
+        for field in dataclasses.fields(cls):
+            assert getattr(getattr(cfgs, block), field.name) == \
+                getattr(getattr(jax_cfg, block), field.name), (block, field.name)
+    Network(cfgs.model, cfgs.pipeline)
+
+
+@pytest.mark.parametrize("path", OTHER)
 def test_label_and_feat_configs_raise(path):
+    """The label and feat configs' blocks under a pipeline outside the three
+    raise."""
+    run = json.loads((ROOT / path).read_text())
+    run["pipeline"] = "segment"
     with pytest.raises(ValueError, match="pipeline"):
-        from_run_config(ROOT / path)
+        from_run_config(run)
+    with pytest.raises(ValueError, match="pipeline"):
+        read_run_config(run)
 
 
 def _jax_config(run):
-    return Config(pipeline="align",
+    return Config(pipeline=run["pipeline"],
                   model=JaxModelConfig(**{k: tuple(v) if isinstance(v, list) else v
                                           for k, v in run["model"].items()}),
                   data=DataConfig(**run["data"]), loss=JaxLossConfig(**run["loss"]),

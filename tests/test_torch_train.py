@@ -126,7 +126,7 @@ def run_jax(jcfg, params, arrays, pyramids, steps):
 
 def blind_biases(model):
     """The inlier net's biases that feed a GroupNorm of one channel per group."""
-    return {f"{name}.dense.bias" for name, m in model.inlier_model.named_modules()
+    return {f"inlier_model.{name}.dense.bias" for name, m in model.inlier_model.named_modules()
             if isinstance(m, ConvUnit) and m.norm is not None
             and m.norm.groups == m.dense.out_features}
 
@@ -179,7 +179,7 @@ def test_every_inlier_grad_leaf_equals_jax(runs, name):
     assert len(blind) == 4
     for step, (g, w) in enumerate(zip(got, want)):
         assert len(g["grads"]) == len(list(model.inlier_model.parameters()))
-        refs = {n: leaf(w["grads"], "inlier_model." + n) for n in g["grads"]}
+        refs = {n: leaf(w["grads"], n) for n in g["grads"]}
         largest = max(float(np.abs(r).max()) for r in refs.values())
         for pname, grad in g["grads"].items():
             ref = refs[pname]
@@ -198,7 +198,7 @@ def test_params_after_three_steps_equal_jax_and_frozen_stay(runs, name):
     assert any(not torch.equal(v, state[k]) for k, v in model.state_dict().items()
                if k.startswith("inlier_model."))
     assert [g["lr"] for g in got] == [lr_at(i, TrainConfig(**TRAIN), 1) for i in range(STEPS)]
-    blind = {"inlier_model." + k for k in blind_biases(model)}
+    blind = blind_biases(model)
     for key, value in model.state_dict().items():
         if key in blind:
             continue
