@@ -44,12 +44,23 @@ and a training step against the plain kernels, the forward timed, four
 training steps at dropout 0.5 (label: random labels; feat: rigid pairs),
 K1 16 times per forward and per step, and a checkpoint round trip; and the
 "stages" phase: `utils.checkpoint.partial_restore` label -> feat -> align
-on the card with JAX's leaf counts. Imports neither JAX nor the JAX
+on the card with JAX's leaf counts; and the eval harness ("eval" phase):
+each refiner on JAX's own inputs against its float64 references and float32
+results, the staged align checkpoint on the 8 checkpoint pairs at 1024
+points through `device_prefetch` -> `make_eval_step` -> `inference_align`
+-> `evaluate_align` -> `save_eval_align` under seven refiner settings
+against tests/data/torch_parity_eval.npz (success flags, refined poses,
+per-pair metrics, the written CSVs and xlsx sheets), the label and feat
+sweeps, and at 18000 points the sweep with every refiner on (seeded weights
+and the staged checkpoint; K1 16 per eval step and 30 per ICP batch, K2 5
+per eval step), each refiner timed alone with its peak memory, and ICP's 30
+K1 searches held against `knn_topk_plain`. Imports neither JAX nor the JAX
 package.
 
 Output: one line per phase with its wall time; then a JSON line
 {"paths": [...]}, a JSON line {"checkpoint": {...}}, a JSON line
 {"train": {...}}, a JSON line {"stages": {...}}, a JSON line
+{"eval": {...}} (with the card's name and power limit), a JSON line
 {"kernels": [...]}, the card's name and power limit as nvidia-smi reports
 them, and last {"ok": true, "device": {...}}.
 Any failure raises: the exit code is not 0 and the last line is not
@@ -104,6 +115,16 @@ PATHS = {
 RUNS = (("default", 1), ("default", 2), ("F", 1), ("F", 2), ("F+gate", 1),
         ("M", 1), ("M", 2), ("D", 1), ("D", 2), ("flag", 1), ("R", 1))
 COUNTED = ("knn_topk", "knn_topk_windowed", "match_argmin", "match_argmin_bidirectional")
+# the eval harness's refiner settings (EvalConfig fields) held against JAX
+EVAL_SETTINGS = {
+    "none": {},
+    "finetune": {"use_finetune": True},
+    "average3": {"pose_average_last": 3},
+    "icp": {"use_icp": True},
+    "ransac": {"use_ransac": True},
+    "all": {"use_finetune": True, "pose_average_last": 3, "use_icp": True, "use_ransac": True},
+    "float16": {"transfer_dtype": "float16"},
+}
 LP_COUNTED = COUNTED[2:]          # these also count their bf16-form launches
 
 
@@ -1838,6 +1859,444 @@ def check_stages(torch, dev):
     return record
 
 
+# ---------------------------------------------------------------- eval harness
+
+EVAL_FIXTURE = ROOT / "tests" / "data" / "torch_parity_eval.npz"
+EVAL_BATCHES = 2                  # the 8 parity pairs as 2 batches of 4
+ICP_LAUNCHES = 30                 # K1 k=1 searches per ICP batch
+# the refined poses against JAX's by `pose_gap`, on the pairs that JAX
+# registers and whose forward held every iteration: an unregistered pair's
+# refiners start 20-40 deg off, where ICP's distance gate and RANSAC's
+# inlier counts flip at their borders (1e-3 apart on the CPU)
+EVAL_POSE_TOL = 1e-4
+# the refiners on JAX's own inputs against JAX's float64 references and
+# its float32 results, by `pose_gap`
+REFINER_TOL = {"finetune_f64": 1e-5, "icp_f64": 1e-5, "finetune": 1e-5, "icp": 1e-5,
+               "ransac": 1e-5}
+# per-pair metrics of the same pairs against JAX's: err_t and chamfer_dist
+# absolute; err_r_deg absolute, set by the float32 arccos near 0, where a
+# change d of the trace moves the angle by up to sqrt(d) rad (1 ulp: 0.02
+# deg, 3e-6: 0.1 deg)
+EVAL_METRIC_TOL = {"err_t": 1e-4, "chamfer_dist": 1e-4, "err_r_deg": 0.2}
+
+
+def pose_gap(got, want, radius) -> np.ndarray:
+    """Per pair, the larger of the largest rotation-entry difference and the
+    largest translation difference in units of the clouds' radius `radius`
+    (B,): (B, 3, 4) poses -> (B,). A float32 pose solve over clouds of
+    radius r carries translation errors of order r * 1e-6."""
+    d = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    return np.maximum(d[..., :3].max(axis=(1, 2)), d[..., 3].max(axis=1) / radius)
+
+
+def eval_config(n: int, **setting):
+    """The staged align run's RunConfig at `n` points with `setting`'s
+    EvalConfig fields."""
+    from deepsir_tpu_torch.config import read_run_config, replace
+    cfgs = read_run_config(CKPT_RUN)
+    return cfgs._replace(model=replace(cfgs.model, num_points=n),
+                         eval=replace(cfgs.eval, **setting))
+
+
+def _split(arrays, batches: int):
+    """Host batch dicts: `arrays` cut into `batches` equal batches."""
+    b = len(arrays["transform_gt"]) // batches
+    return [{k: v[i * b:(i + 1) * b] for k, v in arrays.items()} for i in range(batches)]
+
+
+def _held_pairs(torch, step, batches, want_idx, cfg):
+    """The eval step's iterations held to JAX's matches (held_iterations)
+    for each pair, the forward run batch by batch as inference_align runs it."""
+    from deepsir_tpu_torch.training import device_batch
+    held = []
+    for arrays, want in zip(batches, np.split(want_idx, len(batches), axis=1)):
+        _, out = step(arrays)
+        mask = device_batch(cfg, arrays, device=step.device).mask_src
+        cond = solve_conditioning(torch, out, out.pt_src, out.pt_ref, cfg, mask)
+        held.append(held_iterations(out.pred_idx.cpu().numpy(), want, cond.cpu().numpy()))
+    return np.concatenate(held)
+
+
+def read_artifacts(path: Path, metrics):
+    """The CSVs written by save_eval_align must hold `metrics` as `%.8g`
+    text, and metrics.xlsx one sheet Iter_i per iteration; returns the sheet
+    names."""
+    import xml.etree.ElementTree as ET
+    import zipfile
+    for i, m in enumerate(metrics):
+        m = dict(m)
+        m["r_rmse"], m["t_rmse"] = np.sqrt(m.pop("r_mse")), np.sqrt(m.pop("t_mse"))
+        lines = (path / f"metrics_iter_{i + 1}.csv").read_text().splitlines()
+        if lines[0].split(",") != list(m):
+            raise AssertionError(f"eval artifacts: header {lines[0]}")
+        want = [",".join(f"{float(m[k][r]):.8g}" for k in m) for r in range(len(lines) - 1)]
+        if lines[1:] != want or len(want) != len(m["succ"]):
+            raise AssertionError(f"eval artifacts: metrics_iter_{i + 1}.csv differs")
+    ns = "{http://schemas.openxmlformats.org/spreadsheetml/2006/main}"
+    with zipfile.ZipFile(path / "metrics.xlsx") as z:
+        book = ET.fromstring(z.read("xl/workbook.xml"))
+        names = [s.get("name") for s in book.iter(f"{ns}sheet")]
+    if names != [f"Iter_{i + 1}" for i in range(len(metrics))]:
+        raise AssertionError(f"eval artifacts: sheets {names}")
+    return names
+
+
+def eval_parity(torch, dev, out_dir: Path):
+    """The eval harness with trained weights against JAX at 1024 points: the
+    staged align checkpoint on the 8 checkpoint pairs (2 batches of 4)
+    through device_prefetch -> make_eval_step -> inference_align ->
+    evaluate_align -> save_eval_align under each EVAL_SETTINGS setting,
+    held to tests/data/torch_parity_eval.npz: success flags equal for every
+    pair; for the pairs that JAX registers and whose forward held every
+    iteration (held_iterations), the refined pose within EVAL_POSE_TOL by
+    `pose_gap` and the per-pair metrics within EVAL_METRIC_TOL; the written CSVs equal to the
+    metrics, the xlsx sheets Iter_1..Iter_6. On the card each setting's
+    sweep is a main-path run: K1 16 per eval step (a warm-up and one per
+    batch) and 30 per ICP batch, K2 5 per eval step. Returns (launches,
+    record)."""
+    from deepsir_tpu_torch.evaluation import evaluate_align, inference_align, save_eval_align
+    from deepsir_tpu_torch.training import make_eval_step
+    from deepsir_tpu_torch.utils.checkpoint import load_checkpoint
+    fx = dict(np.load(EVAL_FIXTURE))
+    ck = dict(np.load(CKPT_FIXTURE))
+    arrays = checkpoint_arrays(ck, 1024)
+    cfgs = eval_config(1024)
+    model = load_checkpoint(cfgs.model, CKPT_RUN / "ckpt", device=dev)
+    step = make_eval_step(model, cfgs.model)
+    batches = _split(arrays, EVAL_BATCHES)
+    half = [dict(b, **{k: b[k].astype(np.float16).astype(np.float32)
+                       for k in ("points_src", "points_ref")}) for b in batches]
+    held = {"float32": _held_pairs(torch, step, batches, ck["ckpt0_pred_idx"].astype(np.int64),
+                                   cfgs.model),
+            "float16": _held_pairs(torch, step, half, fx["eval/pred_idx_f16"].astype(np.int64),
+                                   cfgs.model)}
+    picks = torch.from_numpy(fx["eval/ransac_picks"].astype(np.int64)).to(dev)
+    radius = np.abs(arrays["points_src"][..., :3]).max(axis=(1, 2))
+    counted = kernels()
+    total = dict.fromkeys(COUNTED, 0)
+    record = {"pairs": len(arrays["transform_gt"]), "batches": EVAL_BATCHES,
+              "held_iterations": {k: v.tolist() for k, v in held.items()}}
+    n_iter = cfgs.model.num_reg_iter
+    for name, setting in EVAL_SETTINGS.items():
+        cfgs_s = eval_config(1024, **setting)
+        reset_counts(counted)
+        pred, endpoints = inference_align(batches, step, cfgs_s,
+                                          stats_path=str(out_dir / f"{name}_stats.npz"),
+                                          ransac_picks=picks)
+        launches, _ = read_counts(counted)
+        steps = EVAL_BATCHES + 1
+        want = dict.fromkeys(COUNTED, 0)
+        want.update(knn_topk=16 * steps + ICP_LAUNCHES * EVAL_BATCHES * cfgs_s.eval.use_icp,
+                    match_argmin=5 * steps)
+        if dev.type == "cuda" and launches != want:
+            raise AssertionError(f"eval {name}: launches {launches}, expected {want}")
+        for key, value in launches.items():
+            total[key] += value
+        metrics, summary = evaluate_align(pred, batches, cfgs_s, device=dev)
+        save_eval_align(pred, {k: np.concatenate(v) for k, v in endpoints.items()}, metrics,
+                        summary, str(out_dir / name))
+        sheets = read_artifacts(out_dir / name, metrics)
+        if pred.shape != (len(arrays["transform_gt"]), n_iter + 1, 3, 4) or \
+                not np.isfinite(pred).all():
+            raise AssertionError(f"eval {name}: pred_transforms {pred.shape}")
+        ok = ((held["float16" if "transfer_dtype" in setting else "float32"] == n_iter)
+              & (fx[f"eval/{name}/succ"] > 0))
+        pose_err = pose_gap(pred[:, -1], fx[f"eval/{name}/pose"], radius)
+        last = metrics[-1]
+        rec = {"pose_gap": pose_err.tolist(), "held": ok.tolist(),
+               "held_pose_gap": float(pose_err[ok].max()),
+               "succ": last["succ"].tolist(), "launches": launches, "sheets": sheets,
+               "stats_s": np.load(out_dir / f"{name}_stats.npz")["stats"][0, :, 3].tolist()}
+        for key in EVAL_METRIC_TOL:
+            rec[f"{key}_err"] = float(np.abs(last[key] - fx[f"eval/{name}/{key}"])[ok].max())
+        record[name] = rec
+        log(f"eval parity {name}: {json.dumps(rec)}")
+        if not np.array_equal(last["succ"], fx[f"eval/{name}/succ"]):
+            raise AssertionError(f"eval {name}: success {last['succ']}, JAX "
+                                 f"{fx[f'eval/{name}/succ']}")
+        if rec["held_pose_gap"] > EVAL_POSE_TOL or any(
+                rec[f"{k}_err"] > tol for k, tol in EVAL_METRIC_TOL.items()):
+            raise AssertionError(f"eval {name}: {rec}")
+    return total, record
+
+
+def eval_refiners(torch, dev):
+    """Each refiner on the JAX forward's own outputs (the eval fixture):
+    finetune and ICP against JAX's float64 references and its float32
+    results, RANSAC with JAX's draws against its result, each within
+    REFINER_TOL by `pose_gap` (the clouds' radius is ~12). Returns the
+    record."""
+    from deepsir_tpu_torch.evaluation import ICP_ITERS, finetune_pose
+    from deepsir_tpu_torch.ops.gather import gather_points
+    from deepsir_tpu_torch.ops.icp import icp
+    from deepsir_tpu_torch.ops.ransac import ransac_correspondence
+    fx = dict(np.load(EVAL_FIXTURE))
+    arrays = checkpoint_arrays(dict(np.load(CKPT_FIXTURE)), 1024)
+    cfgs = eval_config(1024)
+    dist = cfgs.voxel_size * 2
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(device=dev, dtype=dtype)
+    src, ref = t(arrays["points_src"][..., :3]), t(arrays["points_ref"][..., :3])
+    pose_in = t(fx["eval/transforms"][-1])
+    idx = t(fx["eval/pred_idx"].astype(np.int64), torch.int64)
+    got = {"finetune": finetune_pose(src, gather_points(ref, idx), pose_in,
+                                     torch.sigmoid(t(fx["eval/inlier_logits"])), dist),
+           "icp": icp(src, ref, dist, init=pose_in, num_iter=ICP_ITERS)}
+    picks = t(fx["eval/ransac_picks"], torch.int64)
+    rows = torch.arange(idx.shape[1], device=dev)
+    got["ransac"] = torch.stack([ransac_correspondence(s, r, torch.stack([rows, i], -1), dist,
+                                                       picks=picks)[0]
+                                 for s, r, i in zip(src, ref, idx)])
+    got = {k: v.cpu().numpy() for k, v in got.items()}
+    radius = np.abs(arrays["points_src"][..., :3]).max(axis=(1, 2))
+    rec = {}
+    for key, want in (("finetune_f64", fx["eval/finetune_f64"]), ("icp_f64", fx["eval/icp_f64"]),
+                      ("finetune", fx["eval/finetune/pose"]), ("icp", fx["eval/icp/pose"]),
+                      ("ransac", fx["eval/ransac/pose"])):
+        rec[key] = float(pose_gap(got[key.split("_")[0]], want, radius).max())
+    log(f"eval refiners on JAX's inputs: {json.dumps(rec)}")
+    bad = {k: v for k, v in rec.items() if v > REFINER_TOL[k]}
+    if bad:
+        vs = ", ".join(f"{k}: {v:.3g} > {REFINER_TOL[k]} "
+                       f"({'float64 reference' if k.endswith('f64') else 'JAX float32'})"
+                       for k, v in bad.items())
+        raise AssertionError(f"eval refiners: {vs}")
+    return rec
+
+
+def eval_sweeps(torch, dev, out_dir: Path):
+    """inference_label and inference_feat of the staged label and feat
+    checkpoints on the stages fixture's pairs: the label sweep's mIoU,
+    per-class IoU and accuracy equal to JAX's, and both sweeps' dump files
+    with JAX's names and shapes. Returns (launches, record)."""
+    from functools import partial
+    from deepsir_tpu_torch.evaluation import inference_feat, inference_label
+    from deepsir_tpu_torch.training import forward_step
+    from deepsir_tpu_torch.utils.checkpoint import load_checkpoint
+    fx = dict(np.load(EVAL_FIXTURE))
+    st = dict(np.load(STAGE_FIXTURE))
+    arrays = {k: st[k] for k in ("points_src", "points_ref", "transform_gt", "labels_src",
+                                 "labels_ref")}
+    counted = kernels()
+    reset_counts(counted)
+    record = {}
+    for pipeline in ("label", "feat"):
+        cfgs = stage_config(pipeline, int(arrays["points_src"].shape[1]))
+        model = load_checkpoint(cfgs.model, STAGE_RUNS[pipeline] / "ckpt", device=dev,
+                                pipeline=pipeline)
+        fwd = partial(forward_step, model, cfgs.model)
+        path = out_dir / pipeline
+        if pipeline == "label":
+            miou, iou, acc = inference_label([arrays], fwd, str(path))
+            record["label"] = {"miou": miou, "acc": acc, "jax_miou": float(fx["label/miou"]),
+                               "jax_acc": float(fx["label/acc"])}
+            if (miou != float(fx["label/miou"]) or acc != float(fx["label/acc"])
+                    or not np.array_equal(iou, fx["label/iou"])):
+                raise AssertionError(f"eval label sweep: {record['label']}, iou {iou}")
+        else:
+            inference_feat([arrays], fwd, str(path))
+            record["feat"] = {}
+        names = sorted(p.name for p in path.iterdir())
+        shapes = [list(np.loadtxt(path / n).shape) for n in names]
+        if names != fx[f"{pipeline}/dump_names"].tolist() or \
+                shapes != fx[f"{pipeline}/dump_shapes"].tolist():
+            raise AssertionError(f"eval {pipeline} dumps {names} {shapes}")
+        record[pipeline].update(dumps=names)
+    launches, _ = read_counts(counted)
+    if dev.type == "cuda" and launches != dict.fromkeys(COUNTED, 0) | {"knn_topk": 2 * 16 * 2}:
+        raise AssertionError(f"eval sweeps: launches {launches}")
+    log(f"eval sweeps: {json.dumps(record)}")
+    return launches, record
+
+
+EVAL_FEEDS = 2                    # full-width batches per inference sweep (B=1)
+REFINER_REPS = 3                  # timed runs of each refiner at full width
+
+
+def _timed_peak(torch, fn, reps: int):
+    """(median ms of `reps` runs of fn() on the host clock, each ending in a
+    synchronize; peak max_memory_allocated over them in GiB; fn's last
+    result)."""
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), torch.cuda.max_memory_allocated() / 2 ** 30, result
+
+
+def eval_sweep_full_width(torch, dev, name, model, cfgs, feeds, out_dir: Path):
+    """inference_align -> evaluate_align -> save_eval_align at full width
+    with every refiner on, as a main-path run: K1 16 per eval step (the
+    warm-up and one per batch) and 30 per ICP batch, K2 5 per eval step.
+    Returns (launches, record: ms per pair on inference_align's clock, the
+    sweep's peak memory, success flags)."""
+    from deepsir_tpu_torch.evaluation import evaluate_align, inference_align, save_eval_align
+    from deepsir_tpu_torch.training import make_eval_step
+    step = make_eval_step(model, cfgs.model)
+    counted = kernels()
+    reset_counts(counted)
+    torch.cuda.reset_peak_memory_stats()
+    pred, endpoints = inference_align(feeds, step, cfgs, stats_path=str(out_dir / f"{name}.npz"))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches, _ = read_counts(counted)
+    steps = len(feeds) + 1
+    want = dict.fromkeys(COUNTED, 0)
+    want.update(knn_topk=16 * steps + ICP_LAUNCHES * len(feeds), match_argmin=5 * steps)
+    if dev.type == "cuda" and launches != want:
+        raise AssertionError(f"eval {name}: launches {launches}, expected {want}")
+    if pred.shape != (len(feeds), cfgs.model.num_reg_iter + 1, 3, 4) or \
+            not np.isfinite(pred).all():
+        raise AssertionError(f"eval {name}: pred_transforms {pred.shape}")
+    metrics, summary = evaluate_align(pred, feeds, cfgs, device=dev)
+    save_eval_align(pred, {k: np.concatenate(v) for k, v in endpoints.items()}, metrics,
+                    summary, str(out_dir / name))
+    read_artifacts(out_dir / name, metrics)
+    stats = np.load(out_dir / f"{name}.npz")["stats"][0]
+    rec = {"pairs": len(feeds), "batch": 1, "ms_per_pair": (stats[:, 3] * 1e3).tolist(),
+           "peak_gib": peak, "succ": metrics[-1]["succ"].tolist(),
+           "succ_unrefined": metrics[-2]["succ"].tolist(), "launches": launches}
+    log(f"eval full width {name}: {json.dumps(rec)}")
+    return launches, rec
+
+
+def icp_against_plain(torch, src, ref, dist, init):
+    """ICP at full width with each of its 30 K1 searches held against
+    knn_topk_plain on the same inputs (indices equal but for near ties by
+    the pyramid rule), and the whole ICP against ICP over knn_topk_plain:
+    poses within 1e-4. These are comparison launches, off the main path.
+    Returns the record."""
+    from unittest import mock
+    from deepsir_tpu_torch.evaluation import ICP_ITERS
+    from deepsir_tpu_torch.ops import icp as icp_module
+    from deepsir_tpu_torch.ops.cuda_knn import knn_topk_plain
+    searches, ties = [], 0
+    kernel_knn = icp_module.knn
+
+    def checked(query, cand, k):
+        nonlocal ties
+        got = kernel_knn(query, cand, k)
+        want = knn_topk_plain(query, cand, k)
+        ties += _pyramid_near_ties(torch, f"ICP search {len(searches)}", got[0],
+                                   want[0].cpu().numpy(), query, cand)
+        searches.append(1)
+        return got
+
+    with mock.patch.object(icp_module, "knn", checked):
+        pose = icp_module.icp(src, ref, dist, init=init, num_iter=ICP_ITERS)
+    with mock.patch.object(icp_module, "knn", knn_topk_plain):
+        plain = icp_module.icp(src, ref, dist, init=init, num_iter=ICP_ITERS)
+    err = float((pose - plain).abs().max())
+    if len(searches) != ICP_ITERS or err > 1e-4:
+        raise AssertionError(f"ICP against plain: {len(searches)} searches, pose err {err}")
+    return {"searches": len(searches), "shape": f"{tuple(src.shape)} x {tuple(ref.shape)}, k=1",
+            "index_near_ties": ties, "pose_err": err}
+
+
+def refiner_calls(torch, dev, model, cfgs, pair):
+    """Each refiner alone on the eval step's outputs for the host batch
+    `pair` (B=1), as pose_optimization calls it: (name -> call, ICP's
+    (src, ref, distance, initial pose))."""
+    from deepsir_tpu_torch.evaluation import (FINETUNE_STEPS, ICP_ITERS, RANSAC_HYPOTHESES,
+                                              finetune_pose)
+    from deepsir_tpu_torch.ops.gather import gather_points
+    from deepsir_tpu_torch.ops.icp import icp
+    from deepsir_tpu_torch.ops.ransac import ransac_correspondence
+    from deepsir_tpu_torch.training import make_eval_step
+    _, out = make_eval_step(model, cfgs.model)(pair)
+    dist = cfgs.voxel_size * 2
+    pose = out.transforms[-1]
+    src, ref = (torch.from_numpy(np.ascontiguousarray(pair[k][..., :3])).to(dev)
+                for k in ("points_src", "points_ref"))
+    matched = gather_points(out.pt_ref, out.pred_idx[-1])
+    weights = torch.sigmoid(out.inlier_logits[-1])
+    idx = out.pred_idx[-1][0]
+    corres = torch.stack([torch.arange(idx.shape[0], device=dev), idx], -1)
+    gen = torch.Generator(dev).manual_seed(0)
+    n = src.shape[1]
+    calls = {
+        f"finetune ({FINETUNE_STEPS} Adam steps)":
+            lambda: finetune_pose(out.pt_src, matched, pose, weights, dist),
+        f"icp ({ICP_ITERS} iterations, K1 k=1 {n} x {n})":
+            lambda: icp(src, ref, dist, init=pose, num_iter=ICP_ITERS),
+        f"ransac ({RANSAC_HYPOTHESES} hypotheses x {n} pairs)":
+            lambda: ransac_correspondence(out.pt_src[0], out.pt_ref[0], corres, dist,
+                                          generator=gen)[0]}
+    return calls, (src, ref, dist, pose)
+
+
+def eval_full_width(torch, dev, out_dir: Path):
+    """The eval harness at full width (18000 points, B=1): the inference
+    sweep with every refiner on, over seeded weights on the default path
+    (make_arrays clouds) and over the staged checkpoint on the checkpoint
+    fixture's 2 full-width pairs; then each refiner alone on the
+    checkpoint's first pair, timed (REFINER_REPS runs) with its peak memory;
+    and ICP's K1 searches against knn_topk_plain. Returns (launches, record)."""
+    from deepsir_tpu_torch.config import EvalConfig, LossConfig, RunConfig, TrainConfig
+    from deepsir_tpu_torch.utils.checkpoint import load_checkpoint
+    from deepsir_tpu_torch.utils.params import init_params, load_network
+    refiners = dict(use_finetune=True, pose_average_last=3, use_icp=True, use_ransac=True)
+    total = dict.fromkeys(COUNTED, 0)
+    record = {}
+
+    cfg = path_config("default")
+    cfgs = RunConfig(cfg, LossConfig(), TrainConfig(), "align", EvalConfig(**refiners))
+    rng = np.random.default_rng(0)
+    feeds = [make_arrays(rng, 1) for _ in range(EVAL_FEEDS)]
+    model = load_network(cfg, init_params(cfg, seed=0), device=dev)
+    launches, record["default_seeded"] = eval_sweep_full_width(torch, dev, "default_seeded",
+                                                               model, cfgs, feeds, out_dir)
+    for key, value in launches.items():
+        total[key] += value
+    del model
+
+    cfgs = eval_config(N_POINTS, **refiners)
+    arrays = checkpoint_arrays(dict(np.load(CKPT_FIXTURE)), N_POINTS)
+    model = load_checkpoint(cfgs.model, CKPT_RUN / "ckpt", device=dev)
+    launches, record["checkpoint"] = eval_sweep_full_width(torch, dev, "checkpoint", model,
+                                                           cfgs, _split(arrays, 2), out_dir)
+    for key, value in launches.items():
+        total[key] += value
+
+    calls, (src, ref, dist, pose) = refiner_calls(torch, dev, model, cfgs,
+                                                  _split(arrays, 2)[0])
+    record["refiners"] = {}
+    for name, fn in calls.items():
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        ms, peak, result = _timed_peak(torch, fn, REFINER_REPS)
+        if not bool(torch.isfinite(result).all()):
+            raise AssertionError(f"eval refiner {name}: not finite")
+        record["refiners"][name] = {"ms_per_batch": ms, "peak_gib": peak,
+                                    "peak_above_start_gib": peak - base, "batch": 1}
+    record["icp_against_plain"] = icp_against_plain(torch, src, ref, dist, pose)
+    log(f"eval refiners at full width: {json.dumps(record['refiners'])}; ICP against plain "
+        f"{json.dumps(record['icp_against_plain'])}")
+    return total, record
+
+
+def check_eval(torch, dev, smi: str):
+    """The "eval" phase: eval_refiners, eval_parity, eval_sweeps and
+    eval_full_width. Returns (main-path launches, the phase's record, with
+    the card's name and power limit)."""
+    import tempfile
+    total = dict.fromkeys(COUNTED, 0)
+    record = {"device": smi, "refiners_on_jax_inputs": eval_refiners(torch, dev)}
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = Path(tmp)
+        for part, fn in (("parity", eval_parity), ("sweeps", eval_sweeps),
+                         ("full_width", eval_full_width)):
+            (out_dir / part).mkdir()
+            launches, record[part] = fn(torch, dev, out_dir / part)
+            for key, value in launches.items():
+                total[key] += value
+    return total, record
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1900,10 +2359,15 @@ def main() -> int:
                 total[key] += n
     with phase("stages"):
         stages["chain"] = check_stages(torch, dev)
+    with phase("eval"):
+        launches, evaluation = check_eval(torch, dev, smi)
+        for key, n in launches.items():
+            total[key] += n
     log(json.dumps({"paths": paths}))
     log(json.dumps({"checkpoint": ckpt}))
     log(json.dumps({"train": train}))
     log(json.dumps({"stages": stages}))
+    log(json.dumps({"eval": evaluation}))
     for entry, key in zip((k1, k4, k2, k3), COUNTED):
         entry["launches"] = total[key]
     for entry, key in zip((k2, k3), LP_COUNTED):

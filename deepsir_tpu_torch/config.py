@@ -2,13 +2,13 @@
 
 A copy of the `ModelConfig` fields of deepsir_tpu/config.py:32-181 that the
 three pipelines (label, feat, align) and their training steps read, of
-`LossConfig` and of the `TrainConfig` fields the training step reads, with
-the same names and defaults. The port implements one slice of the model
-configuration space (`check_supported`); any other value of an option raises
-`NotImplementedError` naming the option instead of silently taking another
-path. `from_run_config` reads the model block of the `config.json` a
-training run writes beside its checkpoints, `read_run_config` its pipeline
-and its model, loss and training blocks.
+`LossConfig`, of the `TrainConfig` fields the training step reads and of
+`EvalConfig`, with the same names and defaults. The port implements one
+slice of the model configuration space (`check_supported`); any other value
+of an option raises `NotImplementedError` naming the option instead of
+silently taking another path. `from_run_config` reads the model block of the `config.json` a
+training run writes beside its checkpoints, `read_run_config` its pipeline,
+its model, loss, training and eval blocks and the data block's voxel size.
 
 Precision: the port computes at fp32 grade whatever the precision fields
 say: fp32 torch matmuls with TF32 off (deepsir_tpu_torch/__init__.py), and
@@ -24,7 +24,7 @@ import json
 import os
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Mapping, NamedTuple, Tuple, Union
+from typing import Mapping, NamedTuple, Optional, Tuple, Union
 
 
 @dataclass(frozen=True)
@@ -118,12 +118,36 @@ class TrainConfig:
     seed: int = 0
 
 
+@dataclass(frozen=True)
+class EvalConfig:
+    """Evaluation settings (deepsir_tpu/config.py:EvalConfig). The stored run
+    configs are resolved: their thresholds are the dataset's already."""
+    transform_file: Optional[str] = None
+    eval_save_path: str = "./out/"
+    batch_size: int = 1
+    rte_thresh: float = 0.6           # success thresholds
+    rre_thresh: float = 5.0
+    # the refiners of evaluation.pose_optimization, all off by default
+    use_finetune: bool = False
+    use_icp: bool = False
+    use_ransac: bool = False
+    # dtype of the point payloads on their way to the device ("float16"
+    # halves the bytes; device_batch upcasts to fp32 before any math)
+    transfer_dtype: str = "float32"
+    # chordal mean of the last k iterations' poses as the final pose (0/1 off)
+    pose_average_last: int = 0
+
+
 class RunConfig(NamedTuple):
-    """What a training step reads of a run's config.json."""
+    """What the training step and the eval harness read of a run's config.json."""
     model: ModelConfig
     loss: LossConfig
     train: TrainConfig
     pipeline: str = "align"           # one of PIPELINES
+    eval: EvalConfig = EvalConfig()
+    # the data block's voxel size: the refiners' correspondence distance is
+    # twice it (deepsir_tpu/evaluation.py:134)
+    voxel_size: float = 0.3
 
 
 # keys of a run's "data" and "train" blocks that the training step does not
@@ -262,11 +286,12 @@ def from_run_config(run: Union[str, os.PathLike, Mapping]) -> ModelConfig:
 
 
 def read_run_config(run: Union[str, os.PathLike, Mapping]) -> RunConfig:
-    """The model, loss and training configs and the pipeline of a training
-    run's `config.json` (`run` as for `from_run_config`).
+    """The model, loss, training and eval configs, the pipeline and the
+    voxel size of a training run's `config.json` (`run` as for
+    `from_run_config`).
 
-    The "loss" block maps onto LossConfig and the "train" block onto
-    TrainConfig, both field for field; of the "data" block only DATA_READ is
+    The "loss", "train" and "eval" blocks map onto LossConfig, TrainConfig
+    and EvalConfig field for field; of the "data" block only DATA_READ is
     read. A thres_radius <= 0 is filled as the JAX package's
     `Config.resolved` fills it: voxel_size * positive_pair_radius_multiplier.
     Keys in IGNORED_DATA_KEYS and IGNORED_TRAIN_KEYS are dropped; any other
@@ -276,12 +301,13 @@ def read_run_config(run: Union[str, os.PathLike, Mapping]) -> RunConfig:
     loss = LossConfig(**_known_fields(run.get("loss", {}), LossConfig, (), "loss"))
     train = TrainConfig(**_known_fields(run.get("train", {}), TrainConfig,
                                         IGNORED_TRAIN_KEYS, "train"))
+    evaluation = EvalConfig(**_known_fields(run.get("eval", {}), EvalConfig, (), "eval"))
     data = run.get("data", {})
     unknown = sorted(set(data) - set(DATA_READ) - set(IGNORED_DATA_KEYS))
     if unknown:
         raise ValueError(f"run config data keys {unknown} are not known to the port")
+    voxel_size = data.get("voxel_size", 0.3)      # deepsir_tpu/config.py:DataConfig defaults
     if loss.thres_radius <= 0:
-        # deepsir_tpu/config.py:DataConfig defaults
-        radius = data.get("voxel_size", 0.3) * data.get("positive_pair_radius_multiplier", 3.0)
+        radius = voxel_size * data.get("positive_pair_radius_multiplier", 3.0)
         loss = replace(loss, thres_radius=radius)
-    return RunConfig(from_run_config(run), loss, train, run["pipeline"])
+    return RunConfig(from_run_config(run), loss, train, run["pipeline"], evaluation, voxel_size)

@@ -6,7 +6,8 @@ In a search a CUDA tensor goes to kernel K2, or K3 for both directions
 searches carry no gradient. `square_distance` is a differentiable torch
 op: the feat loss's descriptor distances, which the JAX package computes
 with a plain einsum too. It runs at fp32 grade (TF32 is off,
-deepsir_tpu_torch/__init__.py).
+deepsir_tpu_torch/__init__.py). `min_square_distance`, the metrics'
+chamfer term, is plain torch too, as it is plain XLA in the JAX package.
 """
 from __future__ import annotations
 
@@ -24,6 +25,22 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     d = -2.0 * torch.einsum("...nc,...mc->...nm", src, dst)
     d = d + torch.sum(src * src, dim=-1)[..., :, None]
     return d + torch.sum(dst * dst, dim=-1)[..., None, :]
+
+
+@torch.no_grad()
+def min_square_distance(src: torch.Tensor, ref: torch.Tensor, chunk: int = 2048) -> torch.Tensor:
+    """Each src point's least squared distance to ref, by the norm expansion
+    |a|^2 + |b|^2 - 2ab in src tiles of `chunk` rows, as
+    deepsir_tpu/ops/distance.py:min_square_distance computes it:
+    (..., N, C) x (..., M, C) -> (..., N)."""
+    ref_sq = torch.sum(ref * ref, dim=-1)[..., None, :]
+    parts = []
+    for s in range(0, src.shape[-2], chunk):
+        tile = src[..., s:s + chunk, :]
+        d = (torch.sum(tile * tile, dim=-1)[..., :, None] + ref_sq
+             - 2.0 * (tile @ ref.transpose(-1, -2)))
+        parts.append(torch.amin(d, dim=-1))
+    return torch.cat(parts, dim=-1)
 
 
 @torch.no_grad()

@@ -1,6 +1,6 @@
 """Host batch -> device batch with both pyramids built on the device, the
 label and feat serving forward, and the training step of all three
-pipelines (deepsir_tpu/training.py).
+pipelines, and the align eval step (deepsir_tpu/training.py).
 
 One step (`train_step`, as `make_train_step` defines it): `device_batch`,
 the pipeline's loss (`compute_loss`: label the semantic CE of both clouds,
@@ -188,3 +188,23 @@ def forward_step(model: Network, cfg: ModelConfig, arrays: Dict[str, np.ndarray]
     parameters, then `forward_pair` in inference, without a graph."""
     device = next(model.parameters()).device
     return model.forward_pair(device_batch(cfg, arrays, device=device))
+
+
+def make_eval_step(model: Network, cfg: ModelConfig, num_iter: Optional[int] = None,
+                   refine_stride: int = 1):
+    """The align eval step (deepsir_tpu/training.py:make_eval_step): arrays ->
+    (transforms (iters, B, 3, 4), AlignOutput), as `device_batch` and
+    `forward_align` with clip_weight on, `num_iter` iterations
+    (cfg.num_reg_iter if None) and `refine_stride`, without a graph, on the
+    device of `model`'s parameters, which the step keeps as `.device`."""
+    opts = ForwardOptions(num_iter=num_iter or cfg.num_reg_iter, clip_weight=True,
+                          refine_stride=refine_stride)
+    device = next(model.parameters()).device
+
+    @torch.no_grad()
+    def eval_step(arrays):
+        out = model.forward_align(device_batch(cfg, arrays, device=device), opts)
+        return out.transforms, out
+
+    eval_step.device = device
+    return eval_step

@@ -7,6 +7,7 @@ its training step, or in the label and feat pipelines, on one CUDA card.
                                           [--out FILE]
     python scripts/profile_torch_align.py --stage {label,feat} [--reps 3]
                                           [--out FILE]
+    python scripts/profile_torch_align.py --refiners [--reps 3] [--out FILE]
 
 Drives `device_batch` -> `Network.forward_align` at chip_smoke.py's full-width
 configuration (18000 points, 5 iterations, seeded random weights) along one of
@@ -30,6 +31,12 @@ run it (feat: circle_loss_tile 1500): the host time per
 `training.forward_step` and per `training.train_step` (dropout 0.5 from a
 seeded generator; medians after a warm-up), the peak of
 `torch.cuda.max_memory_allocated` of each, and the profile of one of each.
+With --refiners, the eval harness's refiners alone at 18000 points (B=1) on
+the staged align checkpoint's eval step over the first full-width pair of
+tests/data/torch_parity_ckpt.npz, as chip_smoke.py's "eval" phase times them
+(chip_smoke.refiner_calls): finetune (200 Adam steps), ICP (30 iterations)
+and RANSAC (4096 hypotheses): host ms per batch (median after a warm-up),
+the peak of `torch.cuda.max_memory_allocated`, and the profile of one call.
 With --out, the same numbers are also written there as JSON.
 """
 from __future__ import annotations
@@ -57,6 +64,8 @@ def main() -> int:
                     help="profile the training step instead of the forward")
     ap.add_argument("--stage", default=None, choices=["label", "feat"],
                     help="profile the label or feat pipeline's forward and training step")
+    ap.add_argument("--refiners", action="store_true",
+                    help="profile the eval harness's refiners instead of a path")
     ap.add_argument("--out", type=Path, default=None, help="JSON file to write")
     args = ap.parse_args()
 
@@ -67,6 +76,8 @@ def main() -> int:
         return 1
     if args.train:
         return profile_train(args, torch.device("cuda", 0))
+    if args.refiners:
+        return profile_refiners(args, torch.device("cuda", 0))
     if args.stage:
         return profile_stage(args, torch.device("cuda", 0))
     from deepsir_tpu_torch.models.network import ForwardOptions
@@ -264,6 +275,28 @@ def profile_stage(args, dev) -> int:
     record["step"] = {"ms": float(np.median(step_ms[1:])), "all_ms": step_ms,
                       "max_memory_allocated": int(step_peak),
                       **profile_window(lambda: step(feeds[-1]))}
+    return report(args, record)
+
+
+def profile_refiners(args, dev) -> int:
+    """ms per batch, peak memory and the profile of each refiner at full width."""
+    import torch
+    import chip_smoke
+    from deepsir_tpu_torch.utils.checkpoint import load_checkpoint
+    cfgs = chip_smoke.eval_config(chip_smoke.N_POINTS)
+    model = load_checkpoint(cfgs.model, chip_smoke.CKPT_RUN / "ckpt", device=dev)
+    arrays = chip_smoke.checkpoint_arrays(dict(np.load(chip_smoke.CKPT_FIXTURE)),
+                                          chip_smoke.N_POINTS)
+    calls, _ = chip_smoke.refiner_calls(torch, dev, model, cfgs, chip_smoke._split(arrays, 2)[0])
+    record = {"points": chip_smoke.N_POINTS, "batch": 1, "refiners": {}}
+    for name, fn in calls.items():
+        times, peak = _timed_runs(lambda _: fn(), [None] * (args.reps + 1))
+        print(f"{name}: {np.median(times[1:]):.3f} ms per batch (median of {args.reps} after "
+              f"a warm-up; {[round(t, 3) for t in times]}), peak memory {peak / 2**30:.3f} GiB",
+              flush=True)
+        record["refiners"][name] = {"ms": float(np.median(times[1:])), "all_ms": times,
+                                    "max_memory_allocated": int(peak),
+                                    **profile_window(fn)}
     return report(args, record)
 
 

@@ -14,10 +14,17 @@ PyTorch port against it where JAX is absent:
 - tests/data/torch_parity_stages.npz: the staged label and feat checkpoints'
   eval forward and one resumed training step each, on synthetic pairs
   with labels at 1024 points, and the leaf counts of the staged chain
-  (`stages`).
+  (`stages`);
+- tests/data/torch_parity_eval.npz: the eval harness's refiners
+  (`evaluation.pose_optimization`) on the staged align checkpoint's forward
+  of the checkpoint pairs at 1024 points under each setting of
+  chip_smoke.EVAL_SETTINGS, with their per-pair metrics, JAX's RANSAC
+  draws, the refiners' float64 references (JAX's finetune in x64, a numpy
+  ICP over exact nearest neighbours), and the label and feat sweeps on the
+  stages fixture's pairs (`eval`).
 
 Run on the CPU with JAX installed:
-    python tests/data/make_torch_parity_fixture.py [small] [paths] [ckpt] [train] [stages]
+    python tests/data/make_torch_parity_fixture.py [small] [paths] [ckpt] [train] [stages] [eval]
 
 Each file holds the model config (`model_json`), the flax params
 (`param/<path>`), the input arrays, both clouds' pyramid indices and the
@@ -28,6 +35,7 @@ committed file differs.
 from __future__ import annotations
 
 import json
+import os
 from pathlib import Path
 from typing import Dict
 
@@ -491,12 +499,157 @@ def build_stages() -> Dict[str, np.ndarray]:
     return fixture
 
 
-def main(names=("small", "paths", "ckpt", "train", "stages")) -> None:
+OUT_EVAL = Path(__file__).with_name("torch_parity_eval.npz")
+
+
+def kabsch_f64(src: np.ndarray, tgt: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """The weighted rigid fit tgt ~= T src of ops/svd3.weighted_kabsch in
+    float64: (N, 3), (N, 3), (N,) -> (3, 4)."""
+    wn = (w / (np.abs(w).sum() + 1e-16))[:, None]
+    cs, ct = (src * wn).sum(0), (tgt * wn).sum(0)
+    u, _, vt = np.linalg.svd((src - cs).T @ ((tgt - ct) * wn))
+    v = vt.T
+    rot = v @ np.diag([1.0, 1.0, np.sign(np.linalg.det(v @ u.T))]) @ u.T
+    return np.concatenate([rot, (ct - rot @ cs)[:, None]], axis=1)
+
+
+def icp_f64(src: np.ndarray, tgt: np.ndarray, max_corr_dist: float, init: np.ndarray,
+            num_iter: int = 30) -> np.ndarray:
+    """ops/icp.py::icp in float64 with exact nearest neighbours (ties to the
+    lower index): (B, N, 3), (B, M, 3), init (B, 3, 4) -> (B, 3, 4)."""
+    out = []
+    for s, t, pose in zip(src.astype(np.float64), tgt.astype(np.float64),
+                          init.astype(np.float64)):
+        for _ in range(num_iter):
+            moved = s @ pose[:, :3].T + pose[:, 3]
+            d = ((moved[:, None] - t[None]) ** 2).sum(-1)
+            nn = d.argmin(-1)
+            w = (d[np.arange(len(s)), nn] < max_corr_dist ** 2).astype(np.float64)
+            delta = kabsch_f64(moved, t[nn], w)
+            pose = np.concatenate([delta[:, :3] @ pose[:, :3],
+                                   (delta[:, :3] @ pose[:, 3] + delta[:, 3])[:, None]], 1)
+        out.append(pose)
+    return np.stack(out)
+
+
+def eval_forward(cfg, model, params, arrays):
+    """JAX's eval forward (5 iterations, clip_weight) over exact pyramids."""
+    import jax
+    from deepsir_tpu.models import ForwardOptions
+    from deepsir_tpu.models.network import PairBatch
+    m = cfg.model
+    pyramids = [exact_pyramid(arrays[f"points_{s}"][..., :3], m.num_knn, m.sub_sampling_ratio)
+                for s in ("src", "ref")]
+    batch = PairBatch(arrays["points_src"], arrays["points_ref"], *pyramids,
+                      arrays["transform_gt"], mask_src=arrays["mask_src"],
+                      mask_ref=arrays["mask_ref"])
+    opts = ForwardOptions(num_iter=m.num_reg_iter, clip_weight=True)
+    return jax.device_get(jax.jit(lambda p, b: model.apply(p, b, opts, train=False)[1])(
+        params, batch))
+
+
+def _restore(run: str, cfg, pipeline: str, arrays):
+    """(JAX model, params) of a tracked checkpoint, every leaf loaded."""
+    import jax
+    from deepsir_tpu.models import ForwardOptions, Network
+    from deepsir_tpu.training import device_batch
+    from deepsir_tpu.utils.checkpoint import partial_restore
+    model = Network(cfg.model, pipeline=pipeline)
+    extra = (ForwardOptions(num_iter=1),) if pipeline == "align" else ()
+    target = jax.eval_shape(lambda a: model.init(jax.random.PRNGKey(0),
+                                                 device_batch(cfg, a), *extra), arrays)
+    target = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), target)
+    params, loaded = partial_restore(str(ROOT / run / "ckpt"), target)
+    assert loaded == len(jax.tree_util.tree_leaves(target)), loaded
+    return model, params
+
+
+def build_eval() -> Dict[str, np.ndarray]:
+    """The eval fixture: for the staged align checkpoint on the checkpoint
+    pairs at 1024 points (chip_smoke.checkpoint_arrays), JAX's forward over
+    exact pyramids, then `pose_optimization` under each setting of
+    chip_smoke.EVAL_SETTINGS (float16: the forward on the clouds rounded to
+    float16) and `compute_metrics` of the refined poses as `evaluate_align`
+    takes them; what the refiners read of the forward; JAX's RANSAC draws;
+    JAX's finetune in float64 (x64) and `icp_f64` from the forward's final
+    pose; and JAX's label and feat sweeps (`inference_label`,
+    `inference_feat`) over exact pyramids on the stages fixture's pairs."""
+    import tempfile
+    import jax
+    import jax.numpy as jnp
+    from chip_smoke import EVAL_SETTINGS, checkpoint_arrays
+    from deepsir_tpu.config import replace
+    from deepsir_tpu.evaluation import (finetune_pose, inference_feat, inference_label,
+                                        pose_optimization)
+    from deepsir_tpu.ops.gather import gather_points
+    from deepsir_tpu.utils.metrics import compute_metrics
+    arrays = checkpoint_arrays(dict(np.load(OUT_CKPT)), 1024)
+    cfg = run_config(num_points=1024)
+    model, params = _restore(CKPTS[0], cfg, "align", arrays)
+    out = eval_forward(cfg, model, params, arrays)
+    assert np.array_equal(out.pt_src, arrays["points_src"][..., :3])
+    half = dict(arrays, **{k: arrays[k].astype(np.float16).astype(np.float32)
+                           for k in ("points_src", "points_ref")})
+    out16 = eval_forward(cfg, model, params, half)
+    corres_dist = cfg.data.voxel_size * 2
+    n = arrays["points_src"].shape[1]
+    fixture = {"eval/inlier_logits": out.inlier_logits[-1],
+               "eval/pred_idx": np.asarray(out.pred_idx[-1], np.uint16),
+               "eval/transforms": out.transforms,
+               "eval/transforms_f16": out16.transforms,
+               "eval/pred_idx_f16": np.asarray(out16.pred_idx, np.uint16),
+               "eval/ransac_picks": np.asarray(jax.random.randint(
+                   jax.random.PRNGKey(0), (4096, 3), 0, n), np.int16)}
+    for name, setting in EVAL_SETTINGS.items():
+        cfg_s = replace(cfg, eval=replace(cfg.eval, **setting))
+        o = out16 if setting.get("transfer_dtype") == "float16" else out
+        pose = np.asarray(pose_optimization(cfg_s, arrays, o, o.transforms[-1],
+                                            transforms=o.transforms))
+        fixture[f"eval/{name}/pose"] = pose
+        m = compute_metrics(arrays["transform_gt"], pose, arrays["points_src"],
+                            arrays["points_ref"], cfg.eval.rte_thresh, cfg.eval.rre_thresh,
+                            max_points=1024, mask_src=arrays["mask_src"],
+                            mask_ref=arrays["mask_ref"])
+        for key, value in m.items():
+            fixture[f"eval/{name}/{key}"] = np.asarray(value)
+    matched = np.asarray(gather_points(out.pt_ref, out.pred_idx[-1]))
+    weights = np.asarray(jax.nn.sigmoid(out.inlier_logits[-1]))
+    with jax.enable_x64(True):
+        fixture["eval/finetune_f64"] = np.asarray(jax.vmap(
+            lambda s, r, p, w: finetune_pose(s, r, p, w, corres_dist))(
+            *(jnp.asarray(np.asarray(a, np.float64))
+              for a in (out.pt_src, matched, out.transforms[-1], weights))))
+    fixture["eval/icp_f64"] = icp_f64(arrays["points_src"][..., :3],
+                                      arrays["points_ref"][..., :3], corres_dist,
+                                      out.transforms[-1])
+
+    stage_arrays = stage_pairs(1024, STAGE_PAIRS)
+    for pipeline in ("label", "feat"):
+        cfg_p = run_config(STAGES[pipeline], 1024)
+        net, p = _restore(STAGES[pipeline], cfg_p, pipeline, stage_arrays)
+
+        def fwd(q, a, net=net, cfg_p=cfg_p):
+            return jax.device_get(net.apply(q, _exact_batch(cfg_p, a), train=False)[1])
+        with tempfile.TemporaryDirectory() as tmp:
+            if pipeline == "label":
+                miou, iou, acc = inference_label([stage_arrays], fwd, p, cfg_p, tmp)
+                fixture.update({"label/miou": np.asarray(miou), "label/iou": np.asarray(iou),
+                                "label/acc": np.asarray(acc)})
+            else:
+                inference_feat([stage_arrays], fwd, p, cfg_p, tmp)
+            names = sorted(os.listdir(tmp))
+            fixture[f"{pipeline}/dump_names"] = np.asarray(names)
+            fixture[f"{pipeline}/dump_shapes"] = np.asarray(
+                [np.loadtxt(os.path.join(tmp, f)).shape for f in names])
+    return fixture
+
+
+def main(names=("small", "paths", "ckpt", "train", "stages", "eval")) -> None:
     import jax
     jax.config.update("jax_platforms", "cpu")
     makers = {"small": (OUT, build), "paths": (OUT_PATHS, build_paths),
               "ckpt": (OUT_CKPT, build_ckpt), "train": (OUT_TRAIN, build_train),
-              "stages": (OUT_STAGES, build_stages)}
+              "stages": (OUT_STAGES, build_stages), "eval": (OUT_EVAL, build_eval)}
     for name in names:
         out, make = makers[name]
         np.savez_compressed(out, **make())
@@ -506,4 +659,4 @@ def main(names=("small", "paths", "ckpt", "train", "stages")) -> None:
 if __name__ == "__main__":
     import sys
     sys.path.insert(0, str(ROOT))
-    main(sys.argv[1:] or ("small", "paths", "ckpt", "train", "stages"))
+    main(sys.argv[1:] or ("small", "paths", "ckpt", "train", "stages", "eval"))

@@ -10,11 +10,12 @@ from pathlib import Path
 
 import pytest
 
-from deepsir_tpu.config import (Config, DataConfig, LossConfig as JaxLossConfig,
-                                ModelConfig as JaxModelConfig, TrainConfig as JaxTrainConfig)
+from deepsir_tpu.config import (Config, DataConfig, EvalConfig as JaxEvalConfig,
+                                LossConfig as JaxLossConfig, ModelConfig as JaxModelConfig,
+                                TrainConfig as JaxTrainConfig)
 from deepsir_tpu_torch.config import (DATA_READ, IGNORED_DATA_KEYS, IGNORED_KEYS,
-                                      IGNORED_TRAIN_KEYS, LossConfig, ModelConfig, TrainConfig,
-                                      from_run_config, read_run_config)
+                                      IGNORED_TRAIN_KEYS, EvalConfig, LossConfig, ModelConfig,
+                                      TrainConfig, from_run_config, read_run_config)
 from deepsir_tpu_torch.models.network import Network
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -131,7 +132,8 @@ def _jax_config(run):
                   model=JaxModelConfig(**{k: tuple(v) if isinstance(v, list) else v
                                           for k, v in run["model"].items()}),
                   data=DataConfig(**run["data"]), loss=JaxLossConfig(**run["loss"]),
-                  train=JaxTrainConfig(**run["train"])).resolved()
+                  train=JaxTrainConfig(**run["train"]),
+                  eval=JaxEvalConfig(**run.get("eval", {}))).resolved()
 
 
 @pytest.mark.parametrize("path", ALIGN)
@@ -169,3 +171,37 @@ def test_an_unknown_loss_train_or_data_key_raises_naming_it(block):
     run[block]["use_magic"] = 1
     with pytest.raises(ValueError, match="use_magic"):
         read_run_config(run)
+
+
+@pytest.mark.parametrize("path", RUNS)
+def test_eval_block_reads_as_jax_reads_it(path):
+    """Every tracked config's "eval" block maps onto EvalConfig field for
+    field as the JAX package's resolved config reads it (the stored configs
+    are resolved already), and its voxel size is the data block's."""
+    run = json.loads((ROOT / path).read_text())
+    cfgs = read_run_config(ROOT / path)
+    jax_cfg = _jax_config(run)
+    assert {f.name for f in dataclasses.fields(EvalConfig)} == \
+        {f.name for f in dataclasses.fields(JaxEvalConfig)}
+    for field in dataclasses.fields(EvalConfig):
+        assert getattr(cfgs.eval, field.name) == getattr(jax_cfg.eval, field.name), field.name
+    assert cfgs.voxel_size == jax_cfg.data.voxel_size
+
+
+def test_eval_blocks_switch_the_refiners():
+    evals = [read_run_config(ROOT / p).eval for p in RUNS]
+    assert len(evals) == 132
+    assert sum(e.use_finetune for e in evals) == 14
+    assert sum(e.use_icp for e in evals) == 9
+    assert sum(e.use_ransac for e in evals) == 8
+    assert sum(e.pose_average_last > 1 for e in evals) == 2
+    assert sum(e.transfer_dtype == "float16" for e in evals) == 1
+
+
+def test_an_unknown_eval_key_raises_naming_it():
+    run = json.loads(STAGED.read_text())
+    run["eval"]["use_magic"] = 1
+    with pytest.raises(ValueError, match="use_magic"):
+        read_run_config(run)
+    del run["eval"]
+    assert read_run_config(run).eval == EvalConfig()
