@@ -54,20 +54,31 @@ per-pair metrics, the written CSVs and xlsx sheets), the label and feat
 sweeps, and at 18000 points the sweep with every refiner on (seeded weights
 and the staged checkpoint; K1 16 per eval step and 30 per ICP batch, K2 5
 per eval step), each refiner timed alone with its peak memory, and ICP's 30
-K1 searches held against `knn_topk_plain`. Imports neither JAX nor the JAX
-package.
+K1 searches held against `knn_topk_plain`; and the command lines ("cli" phase):
+the test command (`deepsir_tpu_torch.cli.test.main`, in this process so that
+its launches count) on the tracked staged eval command (128 synthetic pairs
+at 1024 points, the staged align checkpoint) against JAX's test.py in
+tests/data/torch_parity_cli.npz, on the tracked finetune and pose-average
+commands and the finetune command with ICP instead (16 pairs), and in
+--transform_file mode on JAX's stored transforms; the train command
+(`cli.train.main`) on the staged align train command for one epoch of 32
+pairs with a validation, the test command resuming the checkpoint it wrote,
+the label and feat train commands one epoch each; both at 18000 points with
+seeded weights; and each once as `python -m` in a process of its own.
+Imports neither JAX nor the JAX package.
 
 Output: one line per phase with its wall time; then a JSON line
 {"paths": [...]}, a JSON line {"checkpoint": {...}}, a JSON line
 {"train": {...}}, a JSON line {"stages": {...}}, a JSON line
 {"eval": {...}} (with the card's name and power limit), a JSON line
-{"kernels": [...]}, the card's name and power limit as nvidia-smi reports
-them, and last {"ok": true, "device": {...}}.
+{"cli": {...}}, a JSON line {"kernels": [...]}, the card's name and power
+limit as nvidia-smi reports them, and last {"ok": true, "device": {...}}.
 Any failure raises: the exit code is not 0 and the last line is not
 printed. Needs one CUDA card.
 """
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -86,6 +97,7 @@ FLAG_RUN = ROOT / "logs_r4" / "260819_171529_align_flag"
 
 N_POINTS = 18000          # bench.py's protocol
 N_ITERS = 5
+CLI_POINTS = 1024        # the tracked staged commands' --num_points
 FEAT_LEN = 4
 TIMED_REPS = 3
 KERNEL_SOURCES = ("knn_topk", "match_argmin", "match_bidir", "knn_windowed")
@@ -313,6 +325,23 @@ def check_knn(torch, dev, gen):
         f"distance) and at N in {{1, 31, 100}} against {N_POINTS} refs, k in {{1, 16, 32}}, "
         f"D in {{3, 8}}, B=2")
 
+    # the drivers' batches: B=8 at the 1024-point pyramid's levels (the train
+    # and validation batches of the "cli" phase), every batch slot checked;
+    # drawn from a generator of their own, so that the timed shapes below and
+    # the later kernels' inputs stay those of the earlier runs
+    own = torch.Generator().manual_seed(1)
+    pts8 = torch.randn(8, CLI_POINTS, 3, generator=own).mul_(10.0).to(dev)
+    n = CLI_POINTS
+    for lvl in range(4):
+        lp, sub = pts8[:, :n].contiguous(), pts8[:, :n // 4].contiguous()
+        _knn_agree(torch, f"level {lvl} self B=8 N={n}", knn_topk(lp, lp, 16),
+                   knn_topk_plain(lp, lp, 16))
+        _knn_agree(torch, f"level {lvl} upsample B=8 N={n}", knn_topk(lp, sub, 1),
+                   knn_topk_plain(lp, sub, 1))
+        n //= 4
+    log(f"K1 agrees with its plain version at B=8 on the {CLI_POINTS}-point pyramid's "
+        f"searches (k 16 self, k 1 upsample, every level)")
+
     # the pyramid's searches: per level a k=16 self-search and a k=1 search
     # into the next level, at batch 1 and 2
     pts = torch.randn(2, N_POINTS, 3, generator=gen).mul_(10.0).to(dev)
@@ -323,6 +352,10 @@ def check_knn(torch, dev, gen):
             cases.append((f"level {lvl} self B={b}", lp, lp, 16))
             cases.append((f"level {lvl} upsample B={b}", lp, pts[:b, :n // 4].contiguous(), 1))
         n //= 4
+    # ICP's search (ops/icp.py, 30 per batch): every moved source point's
+    # nearest point of the target cloud, k=1 at full width
+    target = torch.randn(1, N_POINTS, 3, generator=own).mul_(10.0).to(dev)
+    cases.append(("ICP k=1 B=1", pts[:1].contiguous(), target, 1))
     shapes, err_max = [], 0.0
     for name, q, r, k in cases:
         _, err = _knn_agree(torch, name, knn_topk(q, r, k), knn_topk_plain(q, r, k))
@@ -468,6 +501,10 @@ def check_match(torch, dev, gen):
     others = [("C=100 B=2", rand(2, 1000, 100), rand(2, 777, 100)),
               ("C=3", rand(1, 300, 3), rand(1, 5000, 3)),
               ("M=1", rand(1, 65, 64), rand(1, 1, 64))]
+    # the drivers' B=8 batches at 1024 points (own generator, as in check_knn)
+    own = torch.Generator().manual_seed(1)
+    others.append((f"B=8 N=M={CLI_POINTS}",
+                   *(_unit_descriptors(torch, own, dev, 8, CLI_POINTS, 64) for _ in range(2))))
     (head, tripled), big = _match_cases(torch, dev, gen)
     forms = {}
     for form, (lp, products, peak) in FORMS.items():
@@ -478,7 +515,7 @@ def check_match(torch, dev, gen):
         if not torch.equal(tied[0], torch.arange(100, device=tied.device)):
             raise AssertionError(f"K2 {form}: planted exact ties did not go to the lowest index")
         log(f"K2 {form} agrees with its plain version at C in {{3, 64, 100}}, ragged N "
-            f"and M, M=1, and planted ties go to the lowest index")
+            f"and M, M=1, B=8 at {CLI_POINTS} points, and planted ties go to the lowest index")
         library = ("chunked addmm + argmin" if not lp else
                    "chunked bf16 addmm (fp32 sums and output) + argmin")
         tile = _distances(torch, lp)
@@ -2279,6 +2316,472 @@ def eval_full_width(torch, dev, out_dir: Path):
     return total, record
 
 
+# ---------------------------------------------------------------- the command lines
+
+CLI_FIXTURE = ROOT / "tests" / "data" / "torch_parity_cli.npz"
+CLI_EVAL_RUN = ROOT / "logs_r3" / "staged_po" / "eval" / "260817_191109_best"
+CLI_REFINER_RUN = ROOT / "logs_r4" / "q2_finetune_full" / "260817_191109_best"
+CLI_POSEAVG_RUN = ROOT / "logs_r4" / "q2_poseavg_full" / "260817_191109_best"
+CLI_EVAL_PAIRS = 128              # the tracked staged eval command's pairs
+CLI_REFINER_PAIRS = 16
+CLI_RESUME_PAIRS = 8
+# the files an align test run writes besides the scores' pickles (the
+# tracked runs' names, without compareHead.diff, which needs git)
+CLI_ARTIFACTS = sorted(["config.json", "log.txt", "metrics.xlsx", "pred_transforms.npy",
+                        "stats.npz", "summary_metrics.json"]
+                       + [f"metrics_iter_{i}.csv" for i in range(1, N_ITERS + 2)])
+
+
+def tracked_command(run: Path) -> list:
+    """The flags of the command on line 1 of a tracked run's log.txt."""
+    import shlex
+    line = (run / "log.txt").read_text().splitlines()[0]
+    return shlex.split(line.split("Command: ", 1)[1])[1:]
+
+
+def refiner_commands(pairs: int = CLI_REFINER_PAIRS) -> dict:
+    """setting -> test command flags: the tracked finetune and pose-average
+    commands, and the finetune command with ICP in place of the finetune,
+    each on `pairs` pairs (a flag given again takes the later value)."""
+    finetune = tracked_command(CLI_REFINER_RUN)
+    return {name: argv + ["--synthetic_eval_size", str(pairs)] for name, argv in (
+        ("finetune", finetune), ("average3", tracked_command(CLI_POSEAVG_RUN)),
+        ("icp", finetune + ["--use_finetune", "false", "--use_icp", "true"]))}
+
+
+def _rooted(argv) -> list:
+    """argv with the --resume paths (relative to the repo's root in the
+    tracked commands) made absolute."""
+    argv = list(argv)
+    for i, tok in enumerate(argv[:-1]):
+        if tok == "--resume" and not Path(argv[i + 1]).is_absolute():
+            argv[i + 1] = str(ROOT / argv[i + 1])
+    return argv
+
+
+def _on(dev, argv) -> list:
+    """argv for `dev`: the commands run on the card by default; on the CPU
+    they are given --device cpu."""
+    return list(argv) + (["--device", "cpu"] if dev.type == "cpu" else [])
+
+
+def run_cli(dev, what, main, argv, want):
+    """main(argv) of a command as a main-path run: every launch count set to
+    0 just before, read just after and, on the card, held to `want` (K1/K2
+    counts; the others 0). Returns (main's result, launches)."""
+    counted = kernels()
+    reset_counts(counted)
+    result = main(_on(dev, argv))
+    launches, _ = read_counts(counted)
+    expected = dict.fromkeys(COUNTED, 0) | want
+    if dev.type == "cuda" and launches != expected:
+        raise AssertionError(f"cli {what}: launches {launches}, expected {expected}")
+    return result, launches
+
+
+def _eval_launches(pairs: int, icp: bool = False) -> dict:
+    """K1 and K2 launches of an align test run of `pairs` pairs at B=1: the
+    eval step 16 + 5 per pair and once for the warm-up; ICP 30 per pair."""
+    return {"knn_topk": 16 * (pairs + 1) + ICP_LAUNCHES * pairs * icp,
+            "match_argmin": 5 * (pairs + 1)}
+
+
+@contextmanager
+def captured_eval_steps():
+    """`cli.test`'s eval steps keep each call's AlignOutput and source
+    mask (device tensors, read after the run: no sync inside the sweep's
+    clock). The first call is the sweep's warm-up."""
+    from unittest import mock
+    from deepsir_tpu_torch.cli import test as cli_test
+    calls, make = [], cli_test.make_eval_step
+
+    def capturing(model, cfg, **kw):
+        step = make(model, cfg, **kw)
+
+        def run(arrays):
+            transforms, out = step(arrays)
+            calls.append((out, arrays.get("mask_src")))
+            return transforms, out
+        run.device = step.device
+        return run
+
+    with mock.patch.object(cli_test, "make_eval_step", capturing):
+        yield calls
+
+
+@contextmanager
+def timed_prefetch(module):
+    """The module's device_prefetch timed at its consumer: the seconds the
+    command waited for each batch (the first includes the loader's start)."""
+    from unittest import mock
+    waits = []
+    real = module.device_prefetch
+
+    def timed(*args, **kw):
+        it = real(*args, **kw)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                waits.append(time.perf_counter() - t0)
+                yield item
+        finally:
+            it.close()
+
+    with mock.patch.object(module, "device_prefetch", timed):
+        yield waits
+
+
+def _port_model_cfg(argv):
+    from deepsir_tpu_torch.config import config_from_args, eval_argument_parser
+    return config_from_args(eval_argument_parser().parse_args(argv)).model
+
+
+def _held_outputs(torch, calls, cfg, want_idx):
+    """(held iterations per pair, the forward's transforms (iters, B, 3, 4),
+    the source clouds' radius per pair) of the captured eval steps after
+    the warm-up, against JAX's matches want_idx (iters, B, N)."""
+    held, transforms, radius = [], [], []
+    for b, (out, mask) in enumerate(calls[1:]):
+        cond = solve_conditioning(torch, out, out.pt_src, out.pt_ref, cfg, mask)
+        held.append(held_iterations(out.pred_idx.cpu().numpy(), want_idx[:, b:b + 1],
+                                    cond.cpu().numpy()))
+        transforms.append(out.transforms.cpu().numpy())
+        radius.append(float(out.pt_src.abs().max()))
+    return np.concatenate(held), np.concatenate(transforms, axis=1), np.asarray(radius)
+
+
+def _last_metrics(save_path: Path, iteration: int = N_ITERS + 1):
+    """The per-pair metrics the test command wrote for `iteration` (1-based)."""
+    return np.genfromtxt(save_path / f"metrics_iter_{iteration}.csv", delimiter=",",
+                         names=True)
+
+
+def _artifacts(save_path: Path) -> list:
+    names = sorted(p.name for p in save_path.iterdir()
+                   if not p.name.startswith("scores_") and p.name != "compareHead.diff")
+    if names != CLI_ARTIFACTS:
+        raise AssertionError(f"cli artifacts {names}, expected {CLI_ARTIFACTS}")
+    return names
+
+
+def _stats_record(save_path: Path, waits) -> dict:
+    stats = np.load(save_path / "stats.npz")["stats"][0]
+    return {"succ": float(stats[:, 0].mean()), "rte": float(stats[:, 1].mean()),
+            "rre": float(stats[:, 2].mean()), "ms_per_pair": (stats[:, 3] * 1e3).tolist(),
+            "ms_per_pair_median": float(np.median(stats[:, 3]) * 1e3),
+            "loader_wait_ms": [w * 1e3 for w in waits],
+            "loader_wait_ms_mean": float(np.mean(waits) * 1e3)}
+
+
+def cli_eval(torch, dev, out_dir: Path, pairs: int = CLI_EVAL_PAIRS):
+    """`cli.test` on the tracked staged eval command (its first `pairs`
+    pairs) against JAX's test.py (tests/data/torch_parity_cli.npz):
+    success flags equal on every pair whose forward held every iteration
+    (held_iterations), held transforms within 1e-3, the other pairs counted;
+    the artifacts of a tracked run. Returns (launches, record, with the
+    tracked TPU run's means beside the port's, not gated)."""
+    from deepsir_tpu_torch import evaluation
+    from deepsir_tpu_torch.cli import test as cli_test
+    fx = dict(np.load(CLI_FIXTURE))
+    argv = _rooted(tracked_command(CLI_EVAL_RUN)) + [
+        "--eval_save_path", str(out_dir), "--synthetic_eval_size", str(pairs)]
+    with captured_eval_steps() as calls, timed_prefetch(evaluation) as waits:
+        save_path, launches = run_cli(dev, "eval", cli_test.main, argv, _eval_launches(pairs))
+    save_path = Path(save_path)
+    held, transforms, _ = _held_outputs(torch, calls, _port_model_cfg(argv),
+                                        fx["staged/pred_idx"][:, :pairs].astype(np.int64))
+    err = np.abs(transforms - fx["staged/transforms"][:, :pairs]).max(axis=(2, 3))
+    held_err = max((float(err[:n, b].max()) for b, n in enumerate(held) if n), default=0.0)
+    succ = _last_metrics(save_path)["succ"]
+    want = fx["staged/metrics/succ"][-1, :pairs]
+    full = held == N_ITERS
+    differ = np.flatnonzero(full & (succ != want))
+    tpu = np.load(CLI_EVAL_RUN / "stats.npz")["stats"][0]
+    record = {"pairs": pairs, "held_all_iterations": int(full.sum()),
+              "not_held": np.flatnonzero(~full).tolist(), "held_transform_err": held_err,
+              "succ_differs_on_held": differ.tolist(),
+              "succ_differs_elsewhere": np.flatnonzero(~full & (succ != want)).tolist(),
+              "jax_cpu_succ": float(want.mean()), "artifacts": _artifacts(save_path),
+              **_stats_record(save_path, waits), "launches": launches,
+              "tpu_run_not_gated": {"succ": float(tpu[:, 0].mean()),
+                                    "rte": float(tpu[:, 1].mean()),
+                                    "rre": float(tpu[:, 2].mean())}}
+    log(f"cli test, staged eval command: {json.dumps({k: v for k, v in record.items() if not isinstance(v, list) or len(v) < 20})}")
+    if len(differ) or held_err > 1e-3:
+        raise AssertionError(f"cli eval: success differs on held pairs {differ.tolist()}, "
+                             f"held transforms differ by {held_err}")
+    return launches, record
+
+
+def cli_refiners(torch, dev, out_dir: Path, pairs: int = CLI_REFINER_PAIRS):
+    """`cli.test` on each refiner command (refiner_commands, `pairs`
+    pairs) against JAX's: success flags equal on every pair, refined poses
+    within EVAL_POSE_TOL by `pose_gap` on the pairs JAX registers whose
+    forward held every iteration. Returns (launches, record)."""
+    from deepsir_tpu_torch import evaluation
+    from deepsir_tpu_torch.cli import test as cli_test
+    fx = dict(np.load(CLI_FIXTURE))
+    total = dict.fromkeys(COUNTED, 0)
+    record = {}
+    for name, argv in refiner_commands(pairs).items():
+        argv = _rooted(argv) + ["--eval_save_path", str(out_dir / name)]
+        with captured_eval_steps() as calls, timed_prefetch(evaluation) as waits:
+            save_path, launches = run_cli(dev, name, cli_test.main, argv,
+                                          _eval_launches(pairs, icp=name == "icp"))
+        for key, value in launches.items():
+            total[key] += value
+        save_path = Path(save_path)
+        held, _, radius = _held_outputs(torch, calls, _port_model_cfg(argv),
+                                        fx["refiners/pred_idx"][:, :pairs].astype(np.int64))
+        pred = np.load(save_path / "pred_transforms.npy")
+        gap = pose_gap(pred[:, -1], fx[f"refiners/{name}/pose"][:pairs], radius)
+        succ = _last_metrics(save_path)["succ"]
+        want = fx[f"refiners/{name}/succ"][:pairs]
+        ok = (held == N_ITERS) & (want > 0)
+        rec = {"pairs": pairs, "held": ok.tolist(), "pose_gap": gap.tolist(),
+               "held_pose_gap": float(gap[ok].max()) if ok.any() else 0.0,
+               "succ": float(succ.mean()), "jax_succ": float(want.mean()),
+               "artifacts": _artifacts(save_path), **_stats_record(save_path, waits),
+               "launches": launches}
+        record[name] = rec
+        log(f"cli test, {name} command: {json.dumps(rec)}")
+        if not np.array_equal(succ, want) or rec["held_pose_gap"] > EVAL_POSE_TOL:
+            raise AssertionError(f"cli {name}: success {succ} (JAX {want}), {rec}")
+    return total, record
+
+
+def cli_transform_file(torch, dev, out_dir: Path, pairs: int = CLI_EVAL_PAIRS):
+    """`cli.test`'s --transform_file mode on JAX's stored transforms of
+    the staged eval command: every iteration's per-pair metrics against
+    JAX's evaluate_align, success flags equal, the rest within
+    EVAL_METRIC_TOL. Returns (launches, record)."""
+    from deepsir_tpu_torch.cli import test as cli_test
+    fx = dict(np.load(CLI_FIXTURE))
+    path = out_dir / "jax_pred_transforms.npy"
+    np.save(path, fx["staged/pred"][:pairs])
+    argv = _rooted(tracked_command(CLI_EVAL_RUN)) + [
+        "--transform_file", str(path), "--eval_save_path", str(out_dir / "transform_file"),
+        "--synthetic_eval_size", str(pairs)]
+    save_path, launches = run_cli(dev, "transform_file", cli_test.main, argv, {})
+    record = {}
+    for i in range(N_ITERS + 1):
+        got = _last_metrics(Path(save_path), i + 1)
+        want = {k: fx[f"staged/metrics/{k}"][i, :pairs] for k in ("succ", *EVAL_METRIC_TOL)}
+        if not np.array_equal(got["succ"], want["succ"]):
+            raise AssertionError(f"cli transform_file: iteration {i + 1} success differs")
+        for key, tol in EVAL_METRIC_TOL.items():
+            err = float(np.abs(got[key] - want[key]).max())
+            record[f"{key}_err"] = max(record.get(f"{key}_err", 0.0), err)
+            if err > tol:
+                raise AssertionError(f"cli transform_file: iteration {i + 1} {key} {err}")
+    record.update(pairs=pairs, succ=float(got["succ"].mean()))
+    log(f"cli test --transform_file on JAX's transforms: {json.dumps(record)}")
+    return launches, record
+
+
+def _timed_steps():
+    """`cli.train`'s train_step with a device fence after each call, the
+    list its milliseconds go to, and the first step's inputs (a copy of the
+    model before it, the run configs and the batch)."""
+    from unittest import mock
+    from deepsir_tpu_torch.cli import train as cli_train
+    import torch
+    times, first, real = [], {}, cli_train.train_step
+
+    def timed(*args, **kw):
+        if not first:
+            model, _, cfgs, arrays = args[:4]
+            first.update(model=copy.deepcopy(model), cfgs=cfgs, arrays=arrays)
+        t0 = time.perf_counter()
+        aux = real(*args, **kw)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return aux
+    return mock.patch.object(cli_train, "train_step", timed), times, first
+
+
+def _train_run(torch, dev, what, argv, want):
+    """One train command as a main-path run: (run directory, record: ms per
+    step, the command's Timer mean, loader wait per batch, peak memory,
+    launches). After the run, outside its counts, the first step's batch
+    from the model as it was before that step, with the kernels against
+    their plain versions (align: `_step_against_plain`; label and feat:
+    `stage_against_plain`)."""
+    from deepsir_tpu_torch.cli import train as cli_train
+    patch, times, first = _timed_steps()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with patch, timed_prefetch(cli_train) as waits:
+        run, launches = run_cli(dev, what, cli_train.main, argv, want)
+    run = Path(run)
+    timer = [line for line in (run / "log.txt").read_text().splitlines()
+             if "Training complete" in line][-1]
+    scalars = [json.loads(line) for line in (run / "train" / "scalars.jsonl").read_text()
+               .splitlines()] if (run / "train" / "scalars.jsonl").exists() else []
+    rec = {"ms_per_step": times, "timer": timer.split("(")[-1].rstrip(")"),
+           "loader_wait_ms": [w * 1e3 for w in waits],
+           "loader_wait_ms_mean": float(np.mean(waits) * 1e3),
+           "val_score": [s["value"] for s in scalars if s["tag"] == "val_score"],
+           "checkpoints": (run / "ckpt" / "checkpoints.txt").read_text().splitlines(),
+           "launches": launches}
+    if dev.type == "cuda":
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (run / "ckpt" / "model_best.msgpack").exists() or \
+            not all(np.isfinite(rec["val_score"])):
+        raise AssertionError(f"cli train {what}: {rec}")
+    model, cfgs, arrays = first["model"], first["cfgs"], first["arrays"]
+    rec["vs_plain"] = (
+        _step_against_plain(torch, model, cfgs, arrays, dev, seed=4, require_held=False)
+        if model.pipeline == "align" else stage_against_plain(torch, model, cfgs, arrays, dev))
+    log(f"cli train, {what}: {json.dumps(rec)}")
+    return run, rec
+
+
+STAGE_TRAIN_PAIRS = 16            # the label and feat train commands' pairs: 2 steps of 8
+VAL_BATCHES = 8                   # the synthetic val split, 64 pairs in batches of 8
+
+
+def cli_train(torch, dev, out_dir: Path):
+    """`cli.train` on the staged align train command (one epoch of 32
+    pairs: 4 steps of B=8, one validation, the checkpoint ring), `cli.test`
+    resuming the checkpoint it wrote on CLI_RESUME_PAIRS pairs, and
+    the label and feat train commands one epoch of STAGE_TRAIN_PAIRS pairs
+    each (validation: mIoU, the feat loss). Returns (launches, record)."""
+    from deepsir_tpu_torch.cli import test as cli_test
+    total = dict.fromkeys(COUNTED, 0)
+    record = {}
+
+    def add(launches):
+        for key, value in launches.items():
+            total[key] += value
+
+    steps = 32 // 8
+    argv = _rooted(tracked_command(CKPT_RUN)) + [
+        "--logdir", str(out_dir / "align"), "--max_epochs", "1", "--synthetic_train_size", "32",
+        "-v", "-1"]
+    run, record["align"] = _train_run(torch, dev, "align", argv, {
+        "knn_topk": 16 * (steps + VAL_BATCHES), "match_argmin": 2 * steps + 5 * VAL_BATCHES})
+    add(record["align"]["launches"])
+    if record["align"]["checkpoints"] != [f"model_{steps}.msgpack", f"Best step: {steps}"]:
+        raise AssertionError(f"cli train align: checkpoints {record['align']['checkpoints']}")
+
+    argv = _rooted(tracked_command(CLI_EVAL_RUN)) + [
+        "--resume", str(run / "ckpt" / "model_best.msgpack"), "--eval_save_path",
+        str(out_dir / "resumed"), "--synthetic_eval_size", str(CLI_RESUME_PAIRS)]
+    save_path, launches = run_cli(dev, "resumed", cli_test.main, argv,
+                                  _eval_launches(CLI_RESUME_PAIRS))
+    add(launches)
+    pred = np.load(Path(save_path) / "pred_transforms.npy")
+    if pred.shape != (CLI_RESUME_PAIRS, N_ITERS + 1, 3, 4) or not np.isfinite(pred).all():
+        raise AssertionError(f"cli test resuming the trained checkpoint: {pred.shape}")
+    record["resumed"] = {"pairs": CLI_RESUME_PAIRS, "launches": launches,
+                         "succ": float(_last_metrics(Path(save_path))["succ"].mean())}
+
+    for pipeline in ("label", "feat"):
+        steps = STAGE_TRAIN_PAIRS // 8
+        argv = _rooted(tracked_command(STAGE_RUNS[pipeline])) + [
+            "--logdir", str(out_dir / pipeline), "--max_epochs", "1",
+            "--synthetic_train_size", str(STAGE_TRAIN_PAIRS), "-v", "-1"]
+        _, record[pipeline] = _train_run(torch, dev, pipeline, argv,
+                                         {"knn_topk": 16 * (steps + VAL_BATCHES)})
+        add(record[pipeline]["launches"])
+    return total, record
+
+
+FULL_WIDTH_TEST = ["--pipeline", "align", "--dataset_type", "Synthetic", "--num_points",
+                   str(N_POINTS), "--feat_len", str(FEAT_LEN), "--synthetic_eval_size", "4"]
+FULL_WIDTH_TRAIN = ["--pipeline", "align", "--dataset_type", "Synthetic", "--num_points",
+                    str(N_POINTS), "--feat_len", str(FEAT_LEN), "-bs", "1",
+                    "--synthetic_train_size", "4", "--max_epochs", "1", "-v", "0"]
+
+
+def cli_full_width(torch, dev, out_dir: Path):
+    """The commands at full width with seeded weights: `cli.test` on 4
+    pairs, without and with ICP, and the train command 4 steps of B=1.
+    Returns (launches, record: ms per pair and per step, loader wait per
+    batch, peak memory)."""
+    from deepsir_tpu_torch import evaluation
+    from deepsir_tpu_torch.cli import test as cli_test
+    total = dict.fromkeys(COUNTED, 0)
+    record = {}
+    for name, extra in (("test", []), ("test_icp", ["--use_icp", "true"])):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        with timed_prefetch(evaluation) as waits:
+            save_path, launches = run_cli(
+                dev, name, cli_test.main,
+                FULL_WIDTH_TEST + extra + ["--eval_save_path", str(out_dir / name)],
+                _eval_launches(4, icp=bool(extra)))
+        pred = np.load(Path(save_path) / "pred_transforms.npy")
+        if pred.shape != (4, N_ITERS + 1, 3, 4) or not np.isfinite(pred).all():
+            raise AssertionError(f"cli full width {name}: {pred.shape}")
+        record[name] = {**_stats_record(Path(save_path), waits), "launches": launches}
+        if dev.type == "cuda":
+            record[name]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"cli full width {name}: {json.dumps(record[name])}")
+        for key, value in launches.items():
+            total[key] += value
+    _, record["train"] = _train_run(torch, dev, "full width", FULL_WIDTH_TRAIN + [
+        "--logdir", str(out_dir / "train")], {"knn_topk": 16 * 4, "match_argmin": 2 * 4})
+    for key, value in record["train"]["launches"].items():
+        total[key] += value
+    return total, record
+
+
+def cli_commands(dev, out_dir: Path) -> dict:
+    """Each command once as a module (`python -m`) in a process of its own:
+    the test command --dev (4 pairs, 1024 points, seeded weights) and the
+    label train command --dev for one step. Returns their wall seconds."""
+    out = {}
+    for name, argv in (
+            ("test", ["--dev", "--pipeline", "align", "--dataset_type", "Synthetic",
+                      "--eval_save_path", str(out_dir / "test")]),
+            ("train", ["--dev", "--pipeline", "label", "--dataset_type", "Synthetic",
+                       "--logdir", str(out_dir / "train"), "--max_epochs", "1", "-bs", "8",
+                       "--synthetic_train_size", "8", "-v", "0"])):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", f"deepsir_tpu_torch.cli.{name}",
+                              *_on(dev, argv)], cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"python -m deepsir_tpu_torch.cli.{name}: rc "
+                                 f"{res.returncode}\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        out[name] = time.perf_counter() - t0
+    if not (out_dir / "test" / "random_init" / "pred_transforms.npy").exists() or \
+            not list((out_dir / "train").glob("logdev/ckpt/model_best.msgpack")):
+        raise AssertionError("cli commands: missing outputs")
+    log(f"cli commands (python -m): {json.dumps(out)}")
+    return out
+
+
+def check_cli(torch, dev, smi: str):
+    """The "cli" phase: cli_eval, cli_refiners, cli_transform_file,
+    cli_train, cli_full_width and cli_commands. Returns (main-path
+    launches, the phase's record, with the card's name and power limit)."""
+    import tempfile
+    total = dict.fromkeys(COUNTED, 0)
+    record = {"device": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = Path(tmp)
+        for part, fn in (("eval", cli_eval), ("refiners", cli_refiners),
+                         ("transform_file", cli_transform_file), ("train", cli_train),
+                         ("full_width", cli_full_width)):
+            (out_dir / part).mkdir()
+            t0 = time.perf_counter()
+            launches, record[part] = fn(torch, dev, out_dir / part)
+            record[part + "_s"] = time.perf_counter() - t0
+            for key, value in launches.items():
+                total[key] += value
+        (out_dir / "commands").mkdir()
+        record["commands_s"] = cli_commands(dev, out_dir / "commands")
+    return total, record
+
+
 def check_eval(torch, dev, smi: str):
     """The "eval" phase: eval_refiners, eval_parity, eval_sweeps and
     eval_full_width. Returns (main-path launches, the phase's record, with
@@ -2363,11 +2866,16 @@ def main() -> int:
         launches, evaluation = check_eval(torch, dev, smi)
         for key, n in launches.items():
             total[key] += n
+    with phase("cli"):
+        launches, cli = check_cli(torch, dev, smi)
+        for key, n in launches.items():
+            total[key] += n
     log(json.dumps({"paths": paths}))
     log(json.dumps({"checkpoint": ckpt}))
     log(json.dumps({"train": train}))
     log(json.dumps({"stages": stages}))
     log(json.dumps({"eval": evaluation}))
+    log(json.dumps({"cli": cli}))
     for entry, key in zip((k1, k4, k2, k3), COUNTED):
         entry["launches"] = total[key]
     for entry, key in zip((k2, k3), LP_COUNTED):

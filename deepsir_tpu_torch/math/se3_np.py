@@ -1,11 +1,12 @@
-"""SE(3) helpers on numpy arrays, for the host side of the eval harness
-(the functions of deepsir_tpu/math/se3_np.py that it reads).
+"""SE(3) helpers on numpy arrays, for the host side: the eval harness and
+the data layer (the functions of deepsir_tpu/math/se3_np.py that they read).
 
 Transforms are ([B,] 3/4, 4) matrices [R | t]; points are ([B,] N, 3).
 """
 from __future__ import annotations
 
 import numpy as np
+from scipy.spatial.transform import Rotation
 
 _BOTTOM = np.array([[0.0, 0.0, 0.0, 1.0]])
 
@@ -42,3 +43,32 @@ def to_4x4(g: np.ndarray) -> np.ndarray:
     if g.shape[-2] == 4:
         return g
     return np.concatenate([g, np.broadcast_to(_BOTTOM, g.shape[:-2] + (1, 4))], axis=-2)
+
+
+def apply_to_cloud(trans_mat: np.ndarray, p0: np.ndarray) -> np.ndarray:
+    """Transform a cloud (N, C) whose columns are xyz, then optionally
+    normals (columns 3:6, rotated when C >= 6), then any other channels,
+    which ride along unchanged."""
+    p1 = transform(trans_mat, p0[:, :3])
+    if p0.shape[1] >= 6:
+        normals = p0[:, 3:6] @ trans_mat[:3, :3].T
+        return np.concatenate((p1, normals, p0[:, 6:]), axis=-1)
+    if p0.shape[1] > 3:
+        return np.concatenate((p1, p0[:, 3:]), axis=-1)
+    return p1
+
+
+def quat2mat(q: np.ndarray) -> np.ndarray:
+    """Rotation matrix from a quaternion (w, x, y, z), not necessarily unit;
+    a near-zero quaternion gives the identity."""
+    w, x, y, z = np.asarray(q, dtype=float)
+    if w * w + x * x + y * y + z * z < 1e-8:
+        return np.eye(3)
+    return Rotation.from_quat([x, y, z, w]).as_matrix()
+
+
+def xyzquat2mat(xyzquat: np.ndarray) -> np.ndarray:
+    """The 4x4 transform of [x, y, z, qw, qx, qy, qz]."""
+    mat = np.concatenate([quat2mat(xyzquat[3:]),
+                          np.asarray(xyzquat[:3], dtype=float)[:, None]], axis=1)
+    return np.concatenate([mat, _BOTTOM], axis=0)

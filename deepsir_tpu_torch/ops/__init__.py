@@ -1,1 +1,2 @@
-"""Point-cloud operators: gathers, KNN pyramid, matcher, pose solve."""
+"""Point-cloud operators: gathers, KNN pyramid, matcher, pose solve, and the
+data layer's host voxel grid, radius matches and ICP."""

@@ -75,6 +75,11 @@ def device_batch(cfg: ModelConfig, arrays: Dict[str, np.ndarray],
         transform_gt=_to_device(arrays["transform_gt"], device), **masks, **indices)
 
 
+def batch_arrays_only(batch: Dict) -> Dict[str, np.ndarray]:
+    """A loader batch without its non-array entries (the metas)."""
+    return {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+
+
 def lr_at(count: int, cfg: TrainConfig, steps_per_epoch: int) -> float:
     """The learning rate after `count` applied updates: `optax.exponential_decay`
     (staircase, end_value=lr_clip) over lr_decay_epoch epochs, as

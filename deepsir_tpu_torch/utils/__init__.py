@@ -1,1 +1,2 @@
-"""Parameter conversion and seeded initialisation."""
+"""Parameter conversion and seeded initialisation, checkpoints, the metrics,
+and the commands' run directory, summaries, timing and tracing."""

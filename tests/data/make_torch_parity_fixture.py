@@ -644,12 +644,80 @@ def build_eval() -> Dict[str, np.ndarray]:
     return fixture
 
 
-def main(names=("small", "paths", "ckpt", "train", "stages", "eval")) -> None:
+OUT_CLI = Path(__file__).with_name("torch_parity_cli.npz")
+
+
+def jax_test_run(argv):
+    """JAX's test.py (align, --resume the staged checkpoint) on the flags
+    `argv`, with the eval forward over exact pyramids: (the forward's
+    transforms (iters, B, 3, 4), matches (iters, B, N) and `invalid` (B,) of
+    every pair, pred_transforms (B, iters + 1, 3, 4), the per-iteration
+    metrics of evaluate_align)."""
+    import jax
+    from deepsir_tpu.config import config_from_args, eval_argument_parser
+    from deepsir_tpu.data.base import Loader
+    from deepsir_tpu.data.datasets import get_test_dataset
+    from deepsir_tpu.evaluation import evaluate_align, inference_align
+    from deepsir_tpu.models import ForwardOptions
+    from deepsir_tpu.models.network import PairBatch
+    from deepsir_tpu.training import batch_arrays_only
+    cfg = config_from_args(eval_argument_parser().parse_args(argv))
+    loader = Loader(get_test_dataset(cfg), 1, shuffle=False, num_workers=4)
+    model, params = _restore(CKPTS[0], cfg, "align", batch_arrays_only(next(iter(loader))))
+    m = cfg.model
+    opts = ForwardOptions(num_iter=m.num_reg_iter, clip_weight=True)
+    apply = jax.jit(lambda p, b: model.apply(p, b, opts, train=False))
+    outs = []
+
+    def eval_step(p, arrays):
+        arrays = jax.device_get(arrays)
+        pyramids = [exact_pyramid(arrays[f"points_{s}"][..., :3], m.num_knn,
+                                  m.sub_sampling_ratio) for s in ("src", "ref")]
+        batch = PairBatch(arrays["points_src"], arrays["points_ref"], *pyramids,
+                          arrays["transform_gt"], mask_src=arrays["mask_src"],
+                          mask_ref=arrays["mask_ref"])
+        transforms, out = apply(p, batch)
+        outs.append(jax.device_get((transforms, out.pred_idx, out.invalid)))
+        return transforms, out
+
+    pred, _ = inference_align(loader, eval_step, params, cfg)
+    metrics, _ = evaluate_align(pred, loader, cfg)
+    transforms, idx, invalid = (np.concatenate(v, axis=min(v[0].ndim - 1, 1))
+                                for v in zip(*outs[1:]))
+    return transforms, idx, invalid, pred, metrics
+
+
+def build_cli() -> Dict[str, np.ndarray]:
+    """The CLI fixture: JAX's test.py on the tracked staged eval command
+    ("staged": the forward, pred_transforms, the metrics of every
+    iteration) and on each refiner command ("refiners": the forward, shared
+    by the three, and each setting's refined pose and last metrics)."""
+    from chip_smoke import CLI_EVAL_RUN, refiner_commands, tracked_command
+    fixture = {}
+    transforms, idx, invalid, pred, metrics = jax_test_run(tracked_command(CLI_EVAL_RUN))
+    fixture.update({"staged/transforms": transforms, "staged/pred_idx": idx.astype(np.int16),
+                    "staged/invalid": invalid, "staged/pred": pred})
+    for key in metrics[0]:
+        fixture[f"staged/metrics/{key}"] = np.stack([np.asarray(m[key]) for m in metrics])
+    for name, argv in refiner_commands().items():
+        transforms, idx, invalid, pred, metrics = jax_test_run(argv)
+        if "refiners/pred_idx" in fixture:
+            assert np.array_equal(fixture["refiners/pred_idx"], idx.astype(np.int16)), name
+        fixture.update({"refiners/transforms": transforms,
+                        "refiners/pred_idx": idx.astype(np.int16),
+                        "refiners/invalid": invalid, f"refiners/{name}/pose": pred[:, -1]})
+        for key, value in metrics[-1].items():
+            fixture[f"refiners/{name}/{key}"] = np.asarray(value)
+    return fixture
+
+
+def main(names=("small", "paths", "ckpt", "train", "stages", "eval", "cli")) -> None:
     import jax
     jax.config.update("jax_platforms", "cpu")
     makers = {"small": (OUT, build), "paths": (OUT_PATHS, build_paths),
               "ckpt": (OUT_CKPT, build_ckpt), "train": (OUT_TRAIN, build_train),
-              "stages": (OUT_STAGES, build_stages), "eval": (OUT_EVAL, build_eval)}
+              "stages": (OUT_STAGES, build_stages), "eval": (OUT_EVAL, build_eval),
+              "cli": (OUT_CLI, build_cli)}
     for name in names:
         out, make = makers[name]
         np.savez_compressed(out, **make())
@@ -659,4 +727,4 @@ def main(names=("small", "paths", "ckpt", "train", "stages", "eval")) -> None:
 if __name__ == "__main__":
     import sys
     sys.path.insert(0, str(ROOT))
-    main(sys.argv[1:] or ("small", "paths", "ckpt", "train", "stages", "eval"))
+    main(sys.argv[1:] or ("small", "paths", "ckpt", "train", "stages", "eval", "cli"))

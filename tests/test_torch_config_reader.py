@@ -1,9 +1,9 @@
 """`config.from_run_config` and `config.read_run_config`: every tracked
 run's config.json (120 align, 8 label, 4 feat) maps to a port ModelConfig
-that `check_supported` admits, and to its pipeline and the LossConfig and
-TrainConfig fields the training step reads, field for field as the JAX
-package reads them; unknown keys, a pipeline outside the three and
-precision the port does not compute raise."""
+that `check_supported` admits, and to its pipeline and its loss, train,
+eval and data blocks, field for field as the JAX package reads them;
+unknown keys, a pipeline outside the three and precision the port does not
+compute raise."""
 import dataclasses
 import json
 from pathlib import Path
@@ -13,9 +13,9 @@ import pytest
 from deepsir_tpu.config import (Config, DataConfig, EvalConfig as JaxEvalConfig,
                                 LossConfig as JaxLossConfig, ModelConfig as JaxModelConfig,
                                 TrainConfig as JaxTrainConfig)
-from deepsir_tpu_torch.config import (DATA_READ, IGNORED_DATA_KEYS, IGNORED_KEYS,
-                                      IGNORED_TRAIN_KEYS, EvalConfig, LossConfig, ModelConfig,
-                                      TrainConfig, from_run_config, read_run_config)
+from deepsir_tpu_torch.config import (DataConfig as PortDataConfig, EvalConfig, LossConfig,
+                                      ModelConfig, TrainConfig, from_run_config,
+                                      read_run_config)
 from deepsir_tpu_torch.models.network import Network
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -40,12 +40,11 @@ def test_every_tracked_align_config_maps(path):
                                 for k, v in run["model"].items()})
     for field in dataclasses.fields(ModelConfig):
         assert getattr(cfg, field.name) == getattr(jax_cfg, field.name), field.name
-    # every key is a field or an ignored key; and the JAX config has no
-    # field the port neither reads nor ignores
+    # every key is a field, and the two configs have the same fields
     jax_fields = {f.name for f in dataclasses.fields(JaxModelConfig)}
     port_fields = {f.name for f in dataclasses.fields(ModelConfig)}
-    assert set(run["model"]) <= port_fields | set(IGNORED_KEYS)
-    assert jax_fields == port_fields | set(IGNORED_KEYS)
+    assert set(run["model"]) <= port_fields
+    assert jax_fields == port_fields
 
 
 def test_the_deploy_and_flagship_configs_build_a_network():
@@ -64,20 +63,14 @@ def test_an_unknown_key_raises_naming_it():
 
 
 def test_each_ignored_key_is_named_with_its_reason():
-    assert set(IGNORED_KEYS) == {"knn_recall_target", "matcher_method",
-                                 "no_slack", "num_sk_iter"}
-    for key, reason in {**IGNORED_KEYS, **IGNORED_DATA_KEYS, **IGNORED_TRAIN_KEYS}.items():
-        assert len(reason) > 20, key
+    """The four model keys that no forward reads (the JAX package's TPU
+    implementation switches and sinkhorn options) are fields, read as
+    stored, so that a run's config maps one for one; the keys the training
+    step reads are fields too."""
     run = json.loads(STAGED.read_text())
-    base = from_run_config(run)
     for key, value in (("knn_recall_target", 1.0), ("matcher_method", "xla"),
-                       ("no_slack", True), ("num_sk_iter", 9)):
-        changed = json.loads(json.dumps(run))
-        changed["model"][key] = value
-        assert from_run_config(changed) == base, key
-    # the training step reads these two and forward_pair num_sub: they are
-    # fields now
-    for key, value in (("dropout_rate", 0.1), ("num_train_reg_iter", 3), ("num_sub", 128)):
+                       ("no_slack", True), ("num_sk_iter", 9),
+                       ("dropout_rate", 0.1), ("num_train_reg_iter", 3), ("num_sub", 128)):
         changed = json.loads(json.dumps(run))
         changed["model"][key] = value
         assert getattr(from_run_config(changed), key) == value, key
@@ -150,9 +143,9 @@ def test_loss_and_train_blocks_read_as_jax_reads_them(path):
     jax_loss = {f.name for f in dataclasses.fields(JaxLossConfig)}
     assert jax_loss == {f.name for f in dataclasses.fields(LossConfig)}
     jax_train = {f.name for f in dataclasses.fields(JaxTrainConfig)}
-    assert jax_train == {f.name for f in dataclasses.fields(TrainConfig)} | set(IGNORED_TRAIN_KEYS)
-    jax_data = {f.name for f in dataclasses.fields(DataConfig)}
-    assert jax_data == set(DATA_READ) | set(IGNORED_DATA_KEYS)
+    assert jax_train == {f.name for f in dataclasses.fields(TrainConfig)}
+    assert dataclasses.asdict(cfgs.data) == dataclasses.asdict(jax_cfg.data)
+    assert dataclasses.astuple(PortDataConfig()) == dataclasses.astuple(DataConfig())
 
 
 def test_thres_radius_is_filled_from_the_data_block():

@@ -44,7 +44,7 @@ from deepsir_tpu.evaluation import (evaluate_align as jax_evaluate_align,
                                     inference_align as jax_inference_align,
                                     save_eval_align as jax_save_eval_align)
 from deepsir_tpu.training import create_train_state, make_eval_step as jax_make_eval_step
-from deepsir_tpu_torch.config import (EvalConfig, LossConfig, ModelConfig, RunConfig,
+from deepsir_tpu_torch.config import (DataConfig, EvalConfig, LossConfig, ModelConfig, RunConfig,
                                       TrainConfig, read_run_config, replace)
 from deepsir_tpu_torch.evaluation import evaluate_align, inference_align, save_eval_align
 from deepsir_tpu_torch.models.network import Network
@@ -114,7 +114,8 @@ def test_align_sweep_against_jax(setup, tmp_path, name):
     jax_save_eval_align(want, want_end, want_m, want_s, str(tmp_path / "jax"))
 
     cfgs = RunConfig(ModelConfig(**MODEL), LossConfig(), TrainConfig(), "align",
-                     replace(EvalConfig(), **setting), cfg.data.voxel_size)
+                     replace(EvalConfig(), **setting),
+                     DataConfig(voxel_size=cfg.data.voxel_size))
     n = MODEL["num_points"]
     picks = torch.from_numpy(np.array(jax.random.randint(jax.random.PRNGKey(0), (4096, 3),
                                                          0, n)))

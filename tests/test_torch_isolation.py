@@ -1,5 +1,6 @@
 """The port stands alone: neither `deepsir_tpu_torch` nor `chip_smoke.py`
-imports JAX, flax, optax, msgpack or anything of the JAX package, and
+imports JAX, flax, optax, msgpack, tensorboardX or anything of the JAX
+package, and
 `chip_smoke.py` fails without a CUDA device."""
 import os
 import re
@@ -15,7 +16,7 @@ PORT = ROOT / "deepsir_tpu_torch"
 
 _IMPORT_ALL = r"""
 import sys
-for name in ("jax", "flax", "optax", "msgpack"):
+for name in ("jax", "flax", "optax", "msgpack", "tensorboardX"):
     sys.modules[name] = None          # any import of them raises ImportError
 import importlib, pkgutil
 import deepsir_tpu_torch
@@ -25,7 +26,7 @@ for name in names:
 import chip_smoke
 leaked = sorted(m for m in sys.modules
                 if m == "deepsir_tpu" or m.startswith("deepsir_tpu.")
-                or m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack")
+                or m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "tensorboardX")
                 and sys.modules[m] is not None)
 print(len(names), leaked)
 assert not leaked, leaked
@@ -41,7 +42,8 @@ def test_port_and_chip_smoke_import_without_jax():
 
 
 def test_sources_do_not_import_the_jax_package():
-    pattern = re.compile(r"^\s*(from|import)\s+(deepsir_tpu|jax|flax|optax|msgpack)\b(?!_torch)",
+    pattern = re.compile(r"^\s*(from|import)\s+(deepsir_tpu|jax|flax|optax|msgpack|tensorboardX)"
+                         r"\b(?!_torch)",
                          re.MULTILINE)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) >= 19

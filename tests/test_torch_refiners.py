@@ -46,7 +46,7 @@ from deepsir_tpu.config import Config, ModelConfig as JaxModelConfig, replace as
 from deepsir_tpu.math import se3_np as jax_se3_np
 from deepsir_tpu.ops.icp import icp as jax_icp
 from deepsir_tpu.ops.ransac import ransac_correspondence as jax_ransac
-from deepsir_tpu_torch.config import (EvalConfig, LossConfig, ModelConfig, RunConfig,
+from deepsir_tpu_torch.config import (DataConfig, EvalConfig, LossConfig, ModelConfig, RunConfig,
                                       TrainConfig, replace)
 from deepsir_tpu_torch.evaluation import average_poses, finetune_pose, pose_optimization
 from deepsir_tpu_torch.models.network import AlignOutput
@@ -250,7 +250,8 @@ def test_pose_optimization(forward, name):
         jax_replace(cfg, eval=jax_replace(cfg.eval, **setting)), arrays, out,
         out.transforms[-1], transforms=out.transforms))
     cfgs = RunConfig(ModelConfig(**F.MODEL), LossConfig(), TrainConfig(), "align",
-                     replace(EvalConfig(), **setting), cfg.data.voxel_size)
+                     replace(EvalConfig(), **setting),
+                     DataConfig(voxel_size=cfg.data.voxel_size))
     n = out.pred_idx.shape[-1]
     picks = torch.from_numpy(np.array(jax.random.randint(jax.random.PRNGKey(0), (4096, 3),
                                                            0, n)))
