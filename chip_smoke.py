@@ -7,10 +7,10 @@ against its plain PyTorch version at the shapes of the align forward and
 times it (the KNN kernels K1 and K4 also on exact lattice ties and few-query
 searches, and timed with their yardsticks by CUDA-graph replay in turns; the
 match kernels K2 and K3 in both operand forms: fp32-grade 3xTF32, which the
-paths run, and bf16 `low_precision`, each timed in turns with a PyTorch
-yardstick), drives the align inference forward (`device_batch` ->
+fp32 paths run, and bf16 `low_precision`, which the bf16 paths run, each
+timed in turns with a PyTorch yardstick), drives the align inference forward (`device_batch` ->
 `Network.forward_align`) at full width (18000 points, 5 iterations) with
-seeded random weights along seven paths:
+seeded random weights along eleven paths:
 - default: the default configuration (kernels K1, K2), batch 1 and 2;
 - F: the round-4 flagship, `dist,recip` inlier channels (K1, K3), batch 1, 2;
 - F+gate: F with the relaxed mutual gate (K1, K3), batch 1;
@@ -22,6 +22,10 @@ seeded random weights along seven paths:
   K3), batch 1;
 - R: the default configuration with `refine_stride=4`, a second pyramid
   over the source subset inside the forward (K1, K2), batch 1;
+- B16: `compute_dtype="bfloat16"` (K1, K2 in its bf16 form), batch 1 and 2;
+- B16F: F under bf16 compute (K1, K3 in its bf16 form), batch 1;
+- I16: `inlier_compute_dtype="bfloat16"` (K1, K2 fp32-grade), batch 1;
+- PPF: `use_ppf`, feat_len 6 with unit normals (K1, K2), batch 1;
 holds the port against the JAX package's outputs stored in
 tests/data/torch_parity_small.npz and tests/data/torch_parity_paths.npz;
 and runs trained weights: the staged align checkpoint, read by the port's
@@ -64,14 +68,26 @@ commands and the finetune command with ICP instead (16 pairs), and in
 (`cli.train.main`) on the staged align train command for one epoch of 32
 pairs with a validation, the test command resuming the checkpoint it wrote,
 the label and feat train commands one epoch each; both at 18000 points with
-seeded weights; and each once as `python -m` in a process of its own.
-Imports neither JAX nor the JAX package.
+seeded weights; and each once as `python -m` in a process of its own;
+and bf16 compute and point-pair features ("precision" phase): the staged
+align checkpoint on the checkpoint pairs at 1024 points under B16, B16F
+(its inlier input layer widened by the fixture's two seeded rows), I16
+and fp32 against JAX's outputs in tests/data/torch_parity_precision.npz
+(the discriminating rule: the port's distance from JAX's bf16 output
+against JAX's own bf16-to-fp32 gap), one bf16 align step of the
+checkpoint against JAX's, B16 and B16F at full width against the same
+forward with every kernel replaced by its plain version, a full-width
+bf16 align step and a `use_ppf` label step against the plain versions,
+and the test command with --compute_dtype bfloat16 on 4 full-width
+pairs. Imports neither JAX nor the JAX package.
 
 Output: one line per phase with its wall time; then a JSON line
 {"paths": [...]}, a JSON line {"checkpoint": {...}}, a JSON line
 {"train": {...}}, a JSON line {"stages": {...}}, a JSON line
 {"eval": {...}} (with the card's name and power limit), a JSON line
-{"cli": {...}}, a JSON line {"kernels": [...]}, the card's name and power
+{"cli": {...}}, a JSON line {"precision": {...}}, a JSON line
+{"kernels": [...]} (K2's and K3's launches by operand form under
+"forms"), the card's name and power
 limit as nvidia-smi reports them, and last {"ok": true, "device": {...}}.
 Any failure raises: the exit code is not 0 and the last line is not
 printed. Needs one CUDA card.
@@ -113,19 +129,28 @@ FORMS = {"fp32x3": (False, 3, PEAK_TF32_FLOPS), "bf16": (True, 1, PEAK_BF16_FLOP
 
 FLAGSHIP = dict(inlier_extra_feats="dist,recip", clip_weight_thresh=0.05)
 DEPLOY = dict(inlier_num_knn=8, inlier_num_layers=2, backbone_num_knn=8)   # README
+BF16 = dict(compute_dtype="bfloat16")
+PPF = dict(use_ppf=True, feat_len=6)
 # path -> (ModelConfig options, or the run whose config.json gives them;
-# ForwardOptions.refine_stride; launches per batch of K1, K4, K2, K3)
+# ForwardOptions.refine_stride; launches per batch of K1, K4, K2, K3, all
+# forms; launches per batch of K2, K3 in the bf16 form)
 PATHS = {
-    "default": ({}, 1, (16, 0, 5, 0)),
-    "F": (FLAGSHIP, 1, (16, 0, 0, 5)),
-    "F+gate": (dict(FLAGSHIP, mutual_check=True, mutual_check_tol=0.6), 1, (16, 0, 0, 5)),
-    "M": (dict(pyramid_order="morton", knn_window_halo=1), 1, (10, 6, 5, 0)),
-    "D": (DEPLOY, 1, (16, 0, 5, 0)),
-    "flag": (FLAG_RUN, 1, (16, 0, 0, 5)),
-    "R": ({}, 4, (24, 0, 5, 0)),
+    "default": ({}, 1, (16, 0, 5, 0), (0, 0)),
+    "F": (FLAGSHIP, 1, (16, 0, 0, 5), (0, 0)),
+    "F+gate": (dict(FLAGSHIP, mutual_check=True, mutual_check_tol=0.6), 1, (16, 0, 0, 5),
+               (0, 0)),
+    "M": (dict(pyramid_order="morton", knn_window_halo=1), 1, (10, 6, 5, 0), (0, 0)),
+    "D": (DEPLOY, 1, (16, 0, 5, 0), (0, 0)),
+    "flag": (FLAG_RUN, 1, (16, 0, 0, 5), (0, 0)),
+    "R": ({}, 4, (24, 0, 5, 0), (0, 0)),
+    "B16": (BF16, 1, (16, 0, 5, 0), (5, 0)),
+    "B16F": (dict(FLAGSHIP, **BF16), 1, (16, 0, 0, 5), (0, 5)),
+    "I16": (dict(inlier_compute_dtype="bfloat16"), 1, (16, 0, 5, 0), (0, 0)),
+    "PPF": (PPF, 1, (16, 0, 5, 0), (0, 0)),
 }
 RUNS = (("default", 1), ("default", 2), ("F", 1), ("F", 2), ("F+gate", 1),
-        ("M", 1), ("M", 2), ("D", 1), ("D", 2), ("flag", 1), ("R", 1))
+        ("M", 1), ("M", 2), ("D", 1), ("D", 2), ("flag", 1), ("R", 1),
+        ("B16", 1), ("B16", 2), ("B16F", 1), ("I16", 1), ("PPF", 1))
 COUNTED = ("knn_topk", "knn_topk_windowed", "match_argmin", "match_argmin_bidirectional")
 # the eval harness's refiner settings (EvalConfig fields) held against JAX
 EVAL_SETTINGS = {
@@ -240,9 +265,11 @@ def read_counts(counted):
             {k: counted[k].launches_lp for k in LP_COUNTED})
 
 
-def make_arrays(rng, batch: int, morton: bool = False, feat_len: int = FEAT_LEN):
+def make_arrays(rng, batch: int, morton: bool = False, feat_len: int = FEAT_LEN,
+                normals: bool = False):
     """Random pair clouds as bench.py's make_arrays makes them (bench.py:116-133),
-    curve-sorted on the host under Morton order."""
+    curve-sorted on the host under Morton order; with `normals` channels 3:6
+    are random unit vectors (the point-pair features' normals)."""
     from deepsir_tpu_torch.ops.morton import sort_clouds
     n = N_POINTS
     xyz = rng.normal(size=(batch, n, 3)).astype(np.float32) * 10.0
@@ -251,6 +278,10 @@ def make_arrays(rng, batch: int, morton: bool = False, feat_len: int = FEAT_LEN)
     xyz2 = rng.normal(size=(batch, n, 3)).astype(np.float32) * 10.0
     pts2 = np.concatenate(
         [xyz2, rng.uniform(size=(batch, n, feat_len - 3)).astype(np.float32)], axis=-1)
+    if normals:
+        for cloud in (pts, pts2):
+            nrm = rng.normal(size=(batch, n, 3))
+            cloud[..., 3:6] = nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)
     if morton:
         pts, pts2 = sort_clouds(pts), sort_clouds(pts2)
     return {"points_src": pts, "points_ref": pts2,
@@ -756,14 +787,22 @@ def expected_launches(cfg, refine_stride: int = 1):
                               cfg.num_reg_iter if both else 0)))
 
 
+def expected_bf16_launches(cfg, refine_stride: int = 1):
+    """Launches per batch of K2 and K3 in their bf16 form: all of them under
+    bf16 compute, none otherwise."""
+    launches = expected_launches(cfg, refine_stride)
+    lp = cfg.compute_dtype == "bfloat16"
+    return {k: launches[k] if lp else 0 for k in LP_COUNTED}
+
+
 def path_config(name: str):
     """A path's ModelConfig at full width (N_POINTS points)."""
     from deepsir_tpu_torch.config import ModelConfig, from_run_config, replace
     options = PATHS[name][0]
     if isinstance(options, Path):                     # the params do not depend on N
         return replace(from_run_config(options), num_points=N_POINTS)
-    return ModelConfig(feat_len=FEAT_LEN, num_points=N_POINTS, num_reg_iter=N_ITERS,
-                       **options)
+    return ModelConfig(**dict(dict(feat_len=FEAT_LEN, num_points=N_POINTS,
+                                   num_reg_iter=N_ITERS), **options))
 
 
 def drive_path(torch, dev, name: str, batch: int, model_cache: dict):
@@ -774,11 +813,12 @@ def drive_path(torch, dev, name: str, batch: int, model_cache: dict):
     from deepsir_tpu_torch.training import device_batch
     from deepsir_tpu_torch.utils.params import init_params, load_network
 
-    _, stride, per_batch = PATHS[name]
+    _, stride, per_batch, bf16_per_batch = PATHS[name]
     cfg = path_config(name)
-    want = expected_launches(cfg, stride)
-    if tuple(want.values()) != per_batch:
-        raise AssertionError(f"{name}: window geometry gives {want}, expected {per_batch}")
+    want, want_lp = expected_launches(cfg, stride), expected_bf16_launches(cfg, stride)
+    if tuple(want.values()) != per_batch or tuple(want_lp.values()) != bf16_per_batch:
+        raise AssertionError(f"{name}: window geometry gives {want}, bf16 form {want_lp}, "
+                             f"expected {per_batch}, {bf16_per_batch}")
     if name not in model_cache:
         model_cache[name] = load_network(cfg, init_params(cfg, seed=0), device=dev)
     model = model_cache[name]
@@ -789,7 +829,7 @@ def drive_path(torch, dev, name: str, batch: int, model_cache: dict):
     def run(arrays):
         return model.forward_align(device_batch(cfg, arrays, device=dev), opts)
 
-    arrays = make_arrays(rng, batch, morton, cfg.feat_len)
+    arrays = make_arrays(rng, batch, morton, cfg.feat_len, cfg.use_ppf)
     counted = kernels()
     reset_counts(counted)
     out = run(arrays)
@@ -797,8 +837,9 @@ def drive_path(torch, dev, name: str, batch: int, model_cache: dict):
     launches, launches_lp = read_counts(counted)
     if launches != want:
         raise AssertionError(f"{name} B={batch}: launches {launches}, expected {want}")
-    if any(launches_lp.values()):                     # the paths compute in fp32
-        raise AssertionError(f"{name} B={batch}: bf16-form launches {launches_lp}")
+    if launches_lp != want_lp:                        # bf16 compute: all in bf16 form
+        raise AssertionError(f"{name} B={batch}: bf16-form launches {launches_lp}, "
+                             f"expected {want_lp}")
     t = out.transforms
     rows = len(range(0, N_POINTS, stride))
     if tuple(out.pred_idx.shape) != (cfg.num_reg_iter - (stride > 1), batch, rows):
@@ -809,7 +850,8 @@ def drive_path(torch, dev, name: str, batch: int, model_cache: dict):
     orth = float((rot @ rot.transpose(-1, -2) - torch.eye(3, device=dev)).abs().max())
     if orth > 1e-3:
         raise AssertionError(f"{name} B={batch}: final rotation not orthonormal ({orth})")
-    feeds = [make_arrays(rng, batch, morton, cfg.feat_len) for _ in range(TIMED_REPS)]
+    feeds = [make_arrays(rng, batch, morton, cfg.feat_len, cfg.use_ppf)
+             for _ in range(TIMED_REPS)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for arrays in feeds:
@@ -1339,31 +1381,37 @@ def _iteration1_descriptors(torch, model, batch):
     return fs, fr
 
 
-def _fp32_near_ties(torch, qry, cand, idx, pidx):
+def _search_near_ties(torch, qry, cand, idx, pidx, low_precision=False):
     """Rows where the kernel's match `idx` into `cand` differs from the plain
-    version's `pidx` must be near ties of the fp32 search: at most 0.1% of
+    version's `pidx` must be near ties of the search: at most 0.1% of
     rows, and the float64 distances of the two candidates within 1e-5 of
     |q|^2 + |c|^2, the scale of the terms both versions sum in fp32 (a
     descriptor's nearest neighbour may be far closer than that scale, so a
     gap relative to the distance itself measures fp32 rounding wrongly
-    there). Returns the rows, the largest gap and the largest gap over the
-    distance."""
+    there). Under `low_precision` the distance is the bf16 form's own,
+    |q|^2 + |c|^2 - 2 bf16(q).bf16(c). Returns the rows, the largest gap and
+    the largest gap over the distance."""
     differ = idx != pidx
     rows = int(differ.sum())
     if not rows:
         return {"rows": 0, "max_gap": 0.0, "max_gap_over_distance": 0.0}
     q = qry.double()
+    qb = qry.to(torch.bfloat16).double() if low_precision else q
 
     def dist(i):
         c = torch.gather(cand.double(), 1, i[..., None].expand(q.shape))
-        return ((q - c) ** 2).sum(-1), (q * q).sum(-1) + (c * c).sum(-1)
+        terms = (q * q).sum(-1) + (c * c).sum(-1)
+        if not low_precision:
+            return ((q - c) ** 2).sum(-1), terms
+        cb = torch.gather(cand.to(torch.bfloat16).double(), 1, i[..., None].expand(q.shape))
+        return terms - 2.0 * (qb * cb).sum(-1), terms
     (d_k, s_k), (d_p, _) = dist(idx), dist(pidx)
     gap = (d_k - d_p).abs()[differ]
     scale = s_k[differ]
     rec = {"rows": rows, "max_gap": float(gap.max()), "max_gap_over_scale": float((gap / scale).max()),
            "max_gap_over_distance": float((gap / d_p[differ].clamp_min(1e-12)).max())}
     if rows > 1e-3 * idx.numel() or rec["max_gap_over_scale"] > 1e-5:
-        raise AssertionError(f"train iteration 1: matches differ beyond fp32 near ties: {rec}")
+        raise AssertionError(f"iteration 1: matches differ beyond near ties: {rec}")
     return rec
 
 
@@ -1396,7 +1444,8 @@ def _runs_against_plain(torch, model, cfgs, arrays, dev, seed, forward=False):
 def _step_against_plain(torch, model, cfgs, arrays, dev, seed, require_held):
     """`_runs_against_plain` on the align pipeline. The pyramids must be
     equal, and the first iteration's matches equal but for near ties (the
-    K2 rule on the step's own descriptors); the loss terms of the
+    search's rule on the step's own descriptors, in the bf16 form's distance
+    under bf16 compute); the loss terms of the
     iterations whose matches all agree within 1e-4 relative, and with every
     iteration held the total within 1e-4 and the inlier grads within 1e-3
     of each leaf's scale. `require_held`: fail unless every iteration holds.
@@ -1410,8 +1459,8 @@ def _step_against_plain(torch, model, cfgs, arrays, dev, seed, require_held):
                         getattr(p_batch, f"pyramid_{side}").neigh_idx):
             if not torch.equal(a, b):
                 raise AssertionError(f"train: the {side} pyramid differs from the plain KNN's")
-    gap = _fp32_near_ties(torch, *_iteration1_descriptors(torch, model, k_batch), k_idx[0],
-                          p_idx[0])
+    gap = _search_near_ties(torch, *_iteration1_descriptors(torch, model, k_batch), k_idx[0],
+                            p_idx[0], model.low_precision)
     k_idx, p_idx = k_idx.cpu().numpy(), p_idx.cpu().numpy()
     held = _held(k_idx, p_idx)
     rec = {"loss": k_loss, "plain_loss": p_loss, "held_iterations": held,
@@ -2365,17 +2414,20 @@ def _on(dev, argv) -> list:
     return list(argv) + (["--device", "cpu"] if dev.type == "cpu" else [])
 
 
-def run_cli(dev, what, main, argv, want):
+def run_cli(dev, what, main, argv, want, want_bf16=None):
     """main(argv) of a command as a main-path run: every launch count set to
     0 just before, read just after and, on the card, held to `want` (K1/K2
-    counts; the others 0). Returns (main's result, launches)."""
+    counts; the others 0) and the bf16-form counts to `want_bf16` (none if
+    None). Returns (main's result, launches)."""
     counted = kernels()
     reset_counts(counted)
     result = main(_on(dev, argv))
-    launches, _ = read_counts(counted)
+    launches, launches_lp = read_counts(counted)
     expected = dict.fromkeys(COUNTED, 0) | want
-    if dev.type == "cuda" and launches != expected:
-        raise AssertionError(f"cli {what}: launches {launches}, expected {expected}")
+    expected_lp = dict.fromkeys(LP_COUNTED, 0) | (want_bf16 or {})
+    if dev.type == "cuda" and (launches != expected or launches_lp != expected_lp):
+        raise AssertionError(f"cli {what}: launches {launches}, bf16 form {launches_lp}, "
+                             f"expected {expected}, {expected_lp}")
     return result, launches
 
 
@@ -2800,6 +2852,305 @@ def check_eval(torch, dev, smi: str):
     return total, record
 
 
+# ---------------------------------------------------------------- precision
+
+PRECISION_FIXTURE = ROOT / "tests" / "data" / "torch_parity_precision.npz"
+# the staged align checkpoint under each option set, with the run whose JAX
+# outputs give its fp32 gap (tests/data/make_torch_parity_fixture.py)
+PRECISION_RUNS = {"B16": (BF16, "F32"), "B16F": (dict(FLAGSHIP, **BF16), "F"),
+                  "I16": (dict(inlier_compute_dtype="bfloat16"), "F32"), "F32": ({}, None)}
+# the discriminating rule's k (tests/test_torch_precision.py): a layer or a
+# 2-level net 1/4; the checkpoint's 4 levels spread bf16 rounding flips
+# from the last bits of fp32 sums, 3/4 (ROADMAP.md Queue 3)
+SHALLOW_K, DEEP_K = 0.25, 0.75
+# registered pairs' final poses against JAX's (CPU, card): B16F 0.053,
+# 0.017; I16 1.4e-3, 2.7e-3 (JAX's own inlier-bf16 and fp32 poses of those
+# pairs are 1.2e-3 to 2.2e-3 apart)
+REGISTERED_POSE_TOL = {"B16": 0.1, "B16F": 0.1, "I16": 1e-2}
+
+
+def discriminating(what, got, want, want_fp32, k) -> dict:
+    """The discriminating rule: median |got - want| <= k * median |want -
+    want_fp32| (the bf16 reference against its fp32 twin), the gap real.
+    Returns both medians."""
+    got, want, want_fp32 = (np.asarray(a, np.float64) for a in (got, want, want_fp32))
+    err = float(np.median(np.abs(got - want)))
+    gap = float(np.median(np.abs(want - want_fp32)))
+    if not gap > 0 or err > k * gap:
+        raise AssertionError(f"precision {what}: median error {err} against JAX's bf16-fp32 "
+                             f"gap {gap} (k = {k})")
+    return {"median_err": err, "median_gap": gap, "k": k}
+
+
+def _precision_model(cfg, state, extra_rows, dev):
+    """Network(cfg) with the staged checkpoint's `state`, its inlier input
+    layer widened by `extra_rows` for the dist and recip channels."""
+    import torch
+    from deepsir_tpu_torch.utils.params import load_network
+    sd = dict(state)
+    if "dist" in cfg.inlier_extra_feats:
+        key = "inlier_model.mlp_pre.dense.weight"
+        sd[key] = torch.cat([sd[key], torch.from_numpy(extra_rows).T], dim=1)
+    return load_network(cfg, sd, device=dev)
+
+
+def precision_parity(torch, dev):
+    """The staged align checkpoint on the checkpoint fixture's 8 pairs at
+    1024 points under bf16 compute (B16; B16F on the fixture's widened
+    inlier layer), a bf16 inlier net (I16) and fp32, against JAX's outputs
+    in tests/data/torch_parity_precision.npz (JAX over exact pyramids, its
+    bf16 search through the matcher hook): descriptors, iteration-1 inlier
+    logits and the share of differing iteration-1 matches by the
+    discriminating rule at DEEP_K; success flags and `invalid` equal;
+    transforms within 1e-3 up to each pair's first differing or
+    ill-conditioned iteration, registered pairs' final poses within
+    REGISTERED_POSE_TOL. I16: descriptors and iteration-1 matches equal to
+    the fp32 run's bit for bit, its logits at SHALLOW_K; its matches equal
+    JAX's for whole iterations while its bf16 inlier weights move the poses
+    (5e-3 on the card within such iterations), so only REGISTERED_POSE_TOL
+    holds its transforms. Each run launches
+    K1 16 and K2 or K3 5 per batch, in the bf16 form exactly under bf16
+    compute. Returns (launches, bf16-form launches, record)."""
+    from deepsir_tpu_torch.config import from_run_config, read_run_config, replace
+    from deepsir_tpu_torch.math import se3
+    from deepsir_tpu_torch.models.network import ForwardOptions, Network
+    from deepsir_tpu_torch.training import device_batch
+    from deepsir_tpu_torch.utils.checkpoint import read_params
+    from deepsir_tpu_torch.utils.params import from_jax_params
+    fx = dict(np.load(PRECISION_FIXTURE))
+    arrays = checkpoint_arrays(dict(np.load(CKPT_FIXTURE)), 1024)
+    base = from_run_config(CKPT_RUN)
+    state = from_jax_params(read_params(CKPT_RUN / "ckpt"), Network(base))
+    evaluation = read_run_config(CKPT_RUN).eval
+    gt = torch.from_numpy(arrays["transform_gt"]).to(dev)
+    counted = kernels()
+    total, total_lp = dict.fromkeys(COUNTED, 0), dict.fromkeys(LP_COUNTED, 0)
+    runs = {}
+    for name, (options, _) in PRECISION_RUNS.items():
+        cfg = replace(base, **options)
+        model = _precision_model(cfg, state, fx["extra_rows"], dev)
+        reset_counts(counted)
+        batch = device_batch(cfg, arrays, device=dev)
+        out = model.forward_align(batch, ForwardOptions(num_iter=cfg.num_reg_iter,
+                                                        clip_weight=True))
+        launches, launches_lp = read_counts(counted)
+        if dev.type == "cuda" and (launches != expected_launches(cfg)
+                                   or launches_lp != expected_bf16_launches(cfg)):
+            raise AssertionError(f"precision {name}: launches {launches}, bf16 form "
+                                 f"{launches_lp}")
+        for key in COUNTED:
+            total[key] += launches[key]
+        for key in LP_COUNTED:
+            total_lp[key] += launches_lp[key]
+        if name == "B16":             # JAX ran over exact pyramids: so must the port
+            for side in ("src", "ref"):
+                _exact_pyramid_agrees(torch, side, getattr(batch, f"pyramid_{side}"),
+                                      cfg.sub_sampling_ratio)
+        rre, rte = (e.cpu().numpy() for e in se3.pose_error(gt, out.transforms[-1]))
+        runs[name] = {"out": out, "cfg": cfg, "launches": launches,
+                      "desc": _iteration1_descriptors(torch, model, batch),
+                      "succ": (rte < evaluation.rte_thresh) & (rre < evaluation.rre_thresh),
+                      "cond": solve_conditioning(torch, out, out.pt_src, out.pt_ref, cfg,
+                                                 batch.mask_src).cpu().numpy()}
+    stride = int(fx["desc_row_stride"])
+    record = {}
+    for name in ("B16", "B16F", "I16"):
+        run, fp32 = runs[name], PRECISION_RUNS[name][1]
+        out = run["out"]
+        pred = out.pred_idx.cpu().numpy()
+        want = fx[f"{name}/pred_idx"].astype(np.int64)
+        rec = {"launches": run["launches"]}
+        if name == "I16":
+            own = runs["F32"]
+            if not all(torch.equal(a, b) for a, b in zip(run["desc"], own["desc"])) or \
+                    not torch.equal(out.pred_idx[0], own["out"].pred_idx[0]):
+                raise AssertionError("precision I16: descriptors or iteration-1 matches "
+                                     "differ from the fp32 run's")
+            rec["logits1"] = discriminating("I16 logits", out.inlier_logits[0].cpu().numpy(),
+                                            fx["I16/logits1"], fx["F32/logits1"], SHALLOW_K)
+        else:
+            for side, d in zip(("src", "ref"), run["desc"]):
+                rec[f"desc_{side}"] = discriminating(
+                    f"{name} {side} descriptors", d.cpu().numpy()[:, ::stride],
+                    fx[f"B16/desc_{side}"], fx[f"F32/desc_{side}"], DEEP_K)
+            rec["logits1"] = discriminating(f"{name} logits", out.inlier_logits[0].cpu().numpy(),
+                                            fx[f"{name}/logits1"], fx[f"{fp32}/logits1"], DEEP_K)
+            share = float((pred[0] != want[0]).mean())
+            gap = float((want[0] != fx[f"{fp32}/pred_idx"][0].astype(np.int64)).mean())
+            rec["iteration1_differ"] = {"share": share, "gap": gap}
+            if share > DEEP_K * gap:
+                raise AssertionError(f"precision {name}: {share} of iteration-1 matches "
+                                     f"differ, JAX's bf16-fp32 gap {gap}")
+        if not np.array_equal(run["succ"], fx[f"{name}/succ"]) or \
+                not np.array_equal(out.invalid.cpu().numpy(), fx[f"{name}/invalid"]):
+            raise AssertionError(f"precision {name}: success {run['succ'].tolist()} or "
+                                 f"invalid differ from JAX's")
+        held = held_iterations(pred, want, run["cond"])
+        err = np.abs(out.transforms.cpu().numpy() - fx[f"{name}/transforms"]).max(axis=(2, 3))
+        held_err = max((float(err[:n, b].max()) for b, n in enumerate(held) if n), default=0.0)
+        final = float(err[-1, run["succ"]].max())
+        rec.update(held_iterations=held.tolist(), held_transform_err=held_err,
+                   registered_final_err=final, success=run["succ"].tolist())
+        if (held_err > 1e-3 and name != "I16") or final > REGISTERED_POSE_TOL[name]:
+            raise AssertionError(f"precision {name}: transforms {rec}")
+        record[name] = rec
+        log(f"precision {name}, 1024 points, 8 pairs against JAX: {json.dumps(rec)}")
+    return total, total_lp, record
+
+
+def precision_step_parity(torch, dev):
+    """One align step of the staged checkpoint resumed with its Adam state,
+    both compute dtypes bf16, on the train fixture's 2 pairs at 1024 points
+    against JAX's bf16 step: the total loss and the share of differing
+    iteration-1 matches by the discriminating rule at DEEP_K (against JAX's
+    fp32 step), applied, params and Adam moments fp32. Returns the record."""
+    from deepsir_tpu_torch.config import replace
+    from deepsir_tpu_torch.models.network import Network
+    from deepsir_tpu_torch.training import make_optimizer, train_step
+    from deepsir_tpu_torch.utils.checkpoint import load_train_state
+    fx = dict(np.load(PRECISION_FIXTURE))
+    tfx, arrays, cfgs, *_ = parity_training(dev)
+    cfgs = cfgs._replace(model=replace(cfgs.model, compute_dtype="bfloat16",
+                                       inlier_compute_dtype="bfloat16"))
+    model = Network(cfgs.model).to(dev)
+    opt = make_optimizer(model)
+    load_train_state(CKPT_RUN / "ckpt", model, opt)
+    out = train_step(model, opt, cfgs, arrays, torch.Generator(device=dev).manual_seed(0),
+                     int(tfx["steps_per_epoch"]))
+    loss, want, want32 = (float(v) for v in (out["loss"], fx["step_bf16/loss"],
+                                             fx["step_f32/loss"]))
+    pred = out["pred_idx"].cpu().numpy()
+    w16, w32 = (fx[f"step_{p}/pred_idx"].astype(np.int64) for p in ("bf16", "f32"))
+    rec = {"loss": loss, "jax_bf16_loss": want, "jax_fp32_loss": want32,
+           "iteration1_differ": float((pred[0] != w16[0]).mean()),
+           "jax_iteration1_gap": float((w16[0] != w32[0]).mean()), "skipped": out["skipped"]}
+    dtypes = {p.dtype for p in model.parameters()} | {
+        v.dtype for st in opt.state.values() for k, v in st.items() if k != "step"}
+    if out["skipped"] or abs(loss - want) > DEEP_K * abs(want - want32) or \
+            rec["iteration1_differ"] > DEEP_K * rec["jax_iteration1_gap"] or \
+            dtypes != {torch.float32}:
+        raise AssertionError(f"precision step: {rec}, dtypes {dtypes}")
+    log(f"precision step (bf16, 1024 points, 2 pairs) against JAX: {json.dumps(rec)}")
+    return rec
+
+
+def precision_against_plain(torch, dev, name: str):
+    """A bf16 path (B16 or B16F) at full width, seeded weights, B=1, with
+    the kernels and again with every kernel swapped for its plain version:
+    pyramids equal; iteration-1 matches equal but for near ties of the bf16
+    form's distance; transforms within 1e-3 up to each pair's first
+    iteration whose matches differ; `invalid` equal. Returns the record."""
+    from deepsir_tpu_torch.models.network import ForwardOptions
+    from deepsir_tpu_torch.training import device_batch
+    from deepsir_tpu_torch.utils.params import init_params, load_network
+    cfg = path_config(name)
+    model = load_network(cfg, init_params(cfg, seed=0), device=dev)
+    arrays = make_arrays(np.random.default_rng(5), 1, feat_len=cfg.feat_len)
+    opts = ForwardOptions(num_iter=cfg.num_reg_iter, clip_weight=True)
+    batch = device_batch(cfg, arrays, device=dev)
+    out = model.forward_align(batch, opts)
+    with plain_kernels():
+        pbatch = device_batch(cfg, arrays, device=dev)
+        plain = model.forward_align(pbatch, opts)
+    for side in ("src", "ref"):
+        for field in ("neigh_idx", "interp_idx"):
+            for a, b in zip(getattr(getattr(batch, f"pyramid_{side}"), field),
+                            getattr(getattr(pbatch, f"pyramid_{side}"), field)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"precision {name}: {side} {field} differs")
+    gap = _search_near_ties(torch, *_iteration1_descriptors(torch, model, batch),
+                            out.pred_idx[0], plain.pred_idx[0], low_precision=True)
+    pred, ppred = out.pred_idx.cpu().numpy(), plain.pred_idx.cpu().numpy()
+    held = held_iterations(pred, ppred, np.ones(pred.shape[:2]))
+    err = np.abs(out.transforms.cpu().numpy() - plain.transforms.cpu().numpy()).max(axis=(2, 3))
+    held_err = max((float(err[:n, b].max()) for b, n in enumerate(held) if n), default=0.0)
+    rec = {"iteration1_gap": gap, "held_iterations": held.tolist(),
+           "held_transform_err": held_err, "rows_differ": (pred != ppred).sum(-1).tolist()}
+    if held_err > 1e-3 or not torch.equal(out.invalid, plain.invalid):
+        raise AssertionError(f"precision {name} against plain: {rec}")
+    log(f"precision {name} at {N_POINTS} points against plain: {json.dumps(rec)}")
+    return rec
+
+
+def precision_steps_against_plain(torch, dev):
+    """One full-width training step against the plain kernels each: align
+    with both compute dtypes bf16 (`_step_against_plain`, its iteration-1
+    rule in the bf16 form's distance; loss 1e-4, grads 1e-3 while held) and
+    label on point-pair features (`stage_against_plain`: forward and loss
+    1e-4, grads 1e-3), seeded weights, B=1. Returns the records."""
+    from deepsir_tpu_torch.config import LossConfig, ModelConfig, RunConfig, TrainConfig
+    from deepsir_tpu_torch.models.network import Network
+    from deepsir_tpu_torch.utils.params import init_params
+    cfg = ModelConfig(feat_len=FEAT_LEN, num_points=N_POINTS, compute_dtype="bfloat16",
+                      inlier_compute_dtype="bfloat16")
+    cfgs = RunConfig(cfg, LossConfig(thres_radius=TRAIN_THRES_RADIUS), TrainConfig())
+    model = Network(cfg)
+    model.load_state_dict(init_params(cfg, seed=0))
+    model.to(dev)
+    rng = np.random.default_rng(6)
+    align = _step_against_plain(torch, model, cfgs, train_arrays(rng, 1), dev, seed=4,
+                                require_held=False)
+    cfgs = stage_config("label", N_POINTS, **PPF)
+    model = Network(cfgs.model, "label")
+    model.load_state_dict(init_params(cfgs.model, seed=0, pipeline="label"))
+    model.to(dev)
+    arrays = make_arrays(rng, 1, feat_len=PPF["feat_len"], normals=True)
+    for side in ("src", "ref"):
+        arrays[f"labels_{side}"] = rng.integers(0, 20, size=(1, N_POINTS)).astype(np.int32)
+    label = stage_against_plain(torch, model, cfgs, arrays, dev)
+    if label["pyramid_near_ties"]:
+        raise AssertionError(f"precision: the PPF label step's pyramids differ: {label}")
+    log(f"precision steps at {N_POINTS} points against plain: align bf16 {json.dumps(align)}; "
+        f"label PPF {json.dumps(label)}")
+    return {"align_bf16": align, "label_ppf": label}
+
+
+def precision_cli(torch, dev, out_dir: Path):
+    """The test command with --compute_dtype bfloat16 on 4 full-width pairs
+    (seeded weights): K1 16 and K2 5 per pair and the warm-up, every K2 in
+    the bf16 form. Returns (launches, bf16-form launches, record)."""
+    from deepsir_tpu_torch import evaluation
+    from deepsir_tpu_torch.cli import test as cli_test
+    want = _eval_launches(4)
+    with timed_prefetch(evaluation) as waits:
+        save_path, launches = run_cli(
+            dev, "test bf16", cli_test.main,
+            FULL_WIDTH_TEST + ["--compute_dtype", "bfloat16", "--eval_save_path",
+                               str(out_dir / "test_bf16")],
+            want, want_bf16={"match_argmin": want["match_argmin"]})
+    pred = np.load(Path(save_path) / "pred_transforms.npy")
+    if pred.shape != (4, N_ITERS + 1, 3, 4) or not np.isfinite(pred).all():
+        raise AssertionError(f"precision cli: {pred.shape}")
+    config = json.loads((Path(save_path) / "config.json").read_text())
+    if config["model"]["compute_dtype"] != "bfloat16":
+        raise AssertionError("precision cli: the run's config.json lost compute_dtype")
+    record = {**_stats_record(Path(save_path), waits), "launches": launches}
+    log(f"precision cli test --compute_dtype bfloat16: {json.dumps(record)}")
+    lp = {k: 0 for k in LP_COUNTED} | {"match_argmin": launches["match_argmin"]}
+    return launches, lp, record
+
+
+def check_precision(torch, dev, smi: str):
+    """The "precision" phase: precision_parity, precision_step_parity,
+    precision_against_plain on B16 and B16F, precision_steps_against_plain
+    and precision_cli. Returns (main-path launches, their bf16-form ones,
+    the phase's record, with the card's name and power limit)."""
+    import tempfile
+    total, total_lp, record = precision_parity(torch, dev)
+    record = {"device": smi, "parity_1024": record,
+              "step_1024": precision_step_parity(torch, dev),
+              "against_plain": {name: precision_against_plain(torch, dev, name)
+                                for name in ("B16", "B16F")},
+              "steps_against_plain": precision_steps_against_plain(torch, dev)}
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, launches_lp, record["cli"] = precision_cli(torch, dev, Path(tmp))
+    for key in COUNTED:
+        total[key] += launches[key]
+    for key in LP_COUNTED:
+        total_lp[key] += launches_lp[key]
+    return total, total_lp, record
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2870,12 +3221,19 @@ def main() -> int:
         launches, cli = check_cli(torch, dev, smi)
         for key, n in launches.items():
             total[key] += n
+    with phase("precision"):
+        launches, launches_lp, precision = check_precision(torch, dev, smi)
+        for key, n in launches.items():
+            total[key] += n
+        for key, n in launches_lp.items():
+            total_lp[key] += n
     log(json.dumps({"paths": paths}))
     log(json.dumps({"checkpoint": ckpt}))
     log(json.dumps({"train": train}))
     log(json.dumps({"stages": stages}))
     log(json.dumps({"eval": evaluation}))
     log(json.dumps({"cli": cli}))
+    log(json.dumps({"precision": precision}))
     for entry, key in zip((k1, k4, k2, k3), COUNTED):
         entry["launches"] = total[key]
     for entry, key in zip((k2, k3), LP_COUNTED):

@@ -11,12 +11,17 @@ raises `NotImplementedError` naming the option instead of silently taking
 another path. `from_run_config` reads the model block of the `config.json`
 a training run writes beside its checkpoints, `read_run_config` all of it.
 
-Precision: the port computes at fp32 grade whatever the precision fields
-say: fp32 torch matmuls with TF32 off (deepsir_tpu_torch/__init__.py), and
-the match kernels K2/K3 in 3xTF32. That is what the JAX package computes on
-the CPU for every value of `inlier_matmul_precision` and
-`matcher_matmul_precision`; the two fields are kept so that a run's config
-maps one for one. `matmul_precision` other than "highest" raises.
+Precision: `compute_dtype="bfloat16"` runs the backbone and the
+aggregation MLPs with bf16 Dense products (models/layers.py) and the
+registration loop's searches K2/K3 on bf16 operands;
+`inlier_compute_dtype="bfloat16"` runs the inlier RandLA's Dense products
+in bf16. Every other product is fp32 grade whatever the three precision
+names say ("default", "high" or "highest"): fp32 torch matmuls with TF32
+off (deepsir_tpu_torch/__init__.py), and K2/K3 in 3xTF32 outside bf16
+compute. That is what the JAX package computes on the CPU for every value
+of `matmul_precision`, `inlier_matmul_precision` and
+`matcher_matmul_precision`; the three fields are kept so that a run's
+config maps one for one.
 """
 from __future__ import annotations
 
@@ -80,15 +85,9 @@ class ModelConfig:
 
 
 INLIER_EXTRAS = ("dist", "recip")
-
-# the one value of each option that the port implements; the options checked
-# by `check_supported` itself admit more
-_SLICE = {
-    "use_ppf": False,
-    "compute_dtype": "float32",
-    "inlier_compute_dtype": "float32",
-    "matmul_precision": "highest",
-}
+COMPUTE_DTYPES = ("float32", "bfloat16")          # the JAX flags' choices
+MATMUL_PRECISIONS = ("default", "high", "highest")
+PPF_MIN_FEAT_LEN = 6                              # xyz, then the normals in 3:6
 
 @dataclass(frozen=True)
 class LossConfig:
@@ -270,6 +269,11 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError naming the first option outside the slice.
 
     Besides the defaults the port implements:
+    - `compute_dtype` and `inlier_compute_dtype` "float32" or "bfloat16";
+      `matmul_precision`, `inlier_matmul_precision` and
+      `matcher_matmul_precision` "default", "high" or "highest" (each read
+      at fp32 grade, see the module docstring);
+    - `use_ppf` with `feat_len >= 6` (the normals are channels 3:6);
     - `inlier_extra_feats` made of "dist" and "recip" (each at most once,
       any order), `mutual_check` with any `mutual_check_tol >= 0`;
     - `pyramid_order="morton"` with `knn_window_halo >= 1`;
@@ -277,9 +281,16 @@ def check_supported(cfg: ModelConfig) -> None:
       `backbone_num_knn` >= 0, `refine_stride` >= 1, `absolute_pose_solve`;
     - `fc_norm` "group", "batch" or "none", `randla_skips` "pre" or "post".
     """
-    for name, value in _SLICE.items():
-        if getattr(cfg, name) != value:
-            raise _unported(name, getattr(cfg, name), f"{name}={value!r}")
+    for name in ("compute_dtype", "inlier_compute_dtype"):
+        if getattr(cfg, name) not in COMPUTE_DTYPES:
+            raise _unported(name, getattr(cfg, name), f"{COMPUTE_DTYPES}")
+    for name in ("matmul_precision", "inlier_matmul_precision", "matcher_matmul_precision"):
+        if getattr(cfg, name) not in MATMUL_PRECISIONS:
+            raise _unported(name, getattr(cfg, name), f"{MATMUL_PRECISIONS}")
+    if cfg.use_ppf and cfg.feat_len < PPF_MIN_FEAT_LEN:
+        raise _unported("use_ppf", cfg.use_ppf,
+                        f"use_ppf with feat_len >= {PPF_MIN_FEAT_LEN}, not "
+                        f"feat_len={cfg.feat_len}: the normals are channels 3:6")
     extras = inlier_extras(cfg)
     if not set(extras) <= set(INLIER_EXTRAS) or len(set(extras)) != len(extras):
         raise _unported("inlier_extra_feats", cfg.inlier_extra_feats,

@@ -9,13 +9,22 @@ mean and biased variance over every non-channel axis of the call, eps 1e-5,
 then a per-channel `scale` and `bias` held by the unit itself; no running
 statistics, in training and inference alike. `norm="none"` drops the norm
 (and its parameters), the layout of the FC stacks under `fc_norm="none"`.
+
+Mixed precision (deepsir_tpu/models/layers.py:25-27): a unit built with
+`dtype=torch.bfloat16` computes its Dense as flax's bf16 `Dense` does
+(`dense`): input and weight rounded to bf16, the product in bf16 with fp32
+sums, then the bias, rounded to bf16, added in bf16. Its norm or, without
+one, its output is fp32, and so are the softmax of `AttPooling` and every
+activation between units. Parameters stay fp32. `dtype=None` is fp32 with
+no casts.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 LEAKY_SLOPE = 0.2
 
@@ -25,7 +34,22 @@ def num_groups(channels: int) -> int:
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    return nn.functional.leaky_relu(x, LEAKY_SLOPE)
+    return F.leaky_relu(x, LEAKY_SLOPE)
+
+
+def compute_dtype(name: str) -> Optional[torch.dtype]:
+    """A config's compute dtype name -> the Dense layers' dtype (None: fp32)."""
+    return None if name == "float32" else getattr(torch, name)
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """flax `Dense(dtype=dtype)` with `layer`'s parameters. Under a half
+    dtype the bias is added after the product is rounded (two roundings,
+    as flax does), not fused into it as `F.linear` would."""
+    if dtype is None:
+        return layer(x)
+    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
 class GroupNorm(nn.Module):
@@ -62,7 +86,8 @@ class ConvUnit(nn.Module):
     and `bias` are the norm's affine (flax's `ConvUnit_i/scale`, `/bias`)."""
 
     def __init__(self, c_in: int, c_out: int, use_norm: bool = True,
-                 use_act: bool = True, norm: str = "group"):
+                 use_act: bool = True, norm: str = "group",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if norm not in ("group", "batch", "none"):
             raise NotImplementedError(f"ConvUnit norm={norm!r}")
@@ -75,9 +100,10 @@ class ConvUnit(nn.Module):
         else:
             self.scale = self.bias = None
         self.use_act = use_act
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.dense(x)
+        x = dense(self.dense, x, self.dtype).float()    # the norm runs in fp32
         if self.norm is not None:
             x = self.norm(x)
         elif self.scale is not None:
@@ -90,12 +116,14 @@ class ConvUnit(nn.Module):
 class MLP(nn.Module):
     """Stack of ConvUnits; norm and activation after every layer but the last."""
 
-    def __init__(self, c_in: int, channels: Sequence[int], norm: str = "group"):
+    def __init__(self, c_in: int, channels: Sequence[int], norm: str = "group",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         units = []
         for i, ch in enumerate(channels):
             last = i == len(channels) - 1
-            units.append(ConvUnit(c_in, ch, use_norm=not last, use_act=not last, norm=norm))
+            units.append(ConvUnit(c_in, ch, use_norm=not last, use_act=not last, norm=norm,
+                                  dtype=dtype))
             c_in = ch
         self.units = nn.ModuleList(units)
 
@@ -108,11 +136,13 @@ class MLP(nn.Module):
 class AttPooling(nn.Module):
     """Attentive pooling over the neighbour axis: (..., N, K, C) -> (..., N, d_out)."""
 
-    def __init__(self, c_in: int, d_out: int):
+    def __init__(self, c_in: int, d_out: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dense = nn.Linear(c_in, c_in, bias=False)
-        self.unit = ConvUnit(c_in, d_out)
+        self.unit = ConvUnit(c_in, d_out, dtype=dtype)
+        self.dtype = dtype
 
     def forward(self, feature_set: torch.Tensor) -> torch.Tensor:
-        att = torch.softmax(self.dense(feature_set), dim=-2)   # over neighbours
+        scores = dense(self.dense, feature_set, self.dtype).float()
+        att = torch.softmax(scores, dim=-2)                    # over neighbours
         return self.unit(torch.sum(feature_set * att, dim=-2))

@@ -26,6 +26,13 @@ reference's stop_gradients let through: the inlier net (its LocSE cache
 included), the Kabsch solves and the composed poses. The backbone, the
 scores, the descriptors, the searches and the inlier net's input channels
 are computed without a graph.
+
+Precision (deepsir_tpu/models/network.py:129-151,347-366): the backbone
+and the aggregation MLPs run their Dense layers in `compute_dtype`, the
+inlier RandLA in `inlier_compute_dtype` (and never on point-pair
+features); under `compute_dtype="bfloat16"` the loop's searches take bf16
+operands (K2/K3's `low_precision` form). Descriptors, logits, weights and
+poses are fp32.
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ from torch import nn
 from deepsir_tpu_torch.config import (PIPELINES, ModelConfig, check_supported, inlier_extras,
                                       replace)
 from deepsir_tpu_torch.math import se3
-from deepsir_tpu_torch.models.layers import MLP
+from deepsir_tpu_torch.models.layers import MLP, compute_dtype
 from deepsir_tpu_torch.models.randla import RandLA
 from deepsir_tpu_torch.models.scoring import score_points, top_k_select
 from deepsir_tpu_torch.ops.distance import (mutual_gate, nearest_neighbour_bidirectional,
@@ -130,16 +137,20 @@ class Network(nn.Module):
         self.feat_extractor = RandLA(cfg, cfg.num_classes, cfg.feat_len)
         # [src xyz ; matched ref xyz] plus one channel per extra feature
         self.extras = inlier_extras(cfg)
+        # the searches of the registration loop take bf16 operands under bf16 compute
+        self.low_precision = cfg.compute_dtype == "bfloat16"
         if pipeline != "label":
-            self.mlp_feat = MLP(c, (c, 128, c), norm=cfg.fc_norm)
-            self.mlp_att = MLP(4, (32, 64, 128, 256, c), norm=cfg.fc_norm)
-            self.mlp_proj = MLP(c, (c,), norm=cfg.fc_norm)
+            dtype = compute_dtype(cfg.compute_dtype)
+            self.mlp_feat = MLP(c, (c, 128, c), norm=cfg.fc_norm, dtype=dtype)
+            self.mlp_att = MLP(4, (32, 64, 128, 256, c), norm=cfg.fc_norm, dtype=dtype)
+            self.mlp_proj = MLP(c, (c,), norm=cfg.fc_norm, dtype=dtype)
         if pipeline == "align":
             # inlier_num_layers > 0 keeps the first levels, which read the
             # first levels of the same source pyramid
             L = cfg.inlier_num_layers or len(cfg.d_out)
             self.inlier_model = RandLA(
-                replace(cfg, d_out=cfg.d_out[:L], sub_sampling_ratio=cfg.sub_sampling_ratio[:L]),
+                replace(cfg, d_out=cfg.d_out[:L], sub_sampling_ratio=cfg.sub_sampling_ratio[:L],
+                        use_ppf=False, compute_dtype=cfg.inlier_compute_dtype),
                 1, 6 + len(self.extras))
 
     def aggregate_side(self, xyz, feat, score):
@@ -291,10 +302,11 @@ class Network(nn.Module):
             with torch.no_grad():
                 # the inlier net's inputs carry no gradient
                 fs = self.aggregate_moving(xyz_src, src.score, src.ff)
+                lp = self.low_precision
                 if need_ridx:
-                    idx, ridx = nearest_neighbour_bidirectional(fs, fr)     # (B, N), (B, M)
+                    idx, ridx = nearest_neighbour_bidirectional(fs, fr, lp)  # (B, N), (B, M)
                 else:
-                    idx = nearest_neighbour_index(fs, fr)                   # (B, N)
+                    idx = nearest_neighbour_index(fs, fr, lp)                # (B, N)
                 xyz_ref_new = gather_points(xyz_ref, idx)
                 # the extra channels stack as [dist, recip] whatever the order
                 # of the config string, as the reference stacks them

@@ -11,6 +11,12 @@ once. In training (`train=True`) dropout at `cfg.dropout_rate` acts on the
 output features before `fc_label`, as flax's `nn.Dropout` does: a kept
 entry is scaled by 1 / keep, the keep mask drawn from the caller's
 `torch.Generator`.
+
+`cfg.compute_dtype` sets the Dense layers' dtype (models/layers.py); the
+features and logits it returns are fp32. Under `cfg.use_ppf` the input
+is not the point features but their point-pair features
+(`ppf_grouping`) over the level-0 neighbours, through `mlp_pre` and a
+mean over the neighbours (deepsir_tpu/models/randla.py:206-211).
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ import torch
 from torch import nn
 
 from deepsir_tpu_torch.config import ModelConfig
-from deepsir_tpu_torch.models.layers import MLP, AttPooling, ConvUnit, leaky_relu
+from deepsir_tpu_torch.models.layers import (MLP, AttPooling, ConvUnit, compute_dtype, dense,
+                                             leaky_relu)
 from deepsir_tpu_torch.ops.gather import (gather_neighbour, max_pool_neighbours,
                                           nearest_interpolate)
 from deepsir_tpu_torch.ops.pyramid import Pyramid
@@ -39,16 +46,40 @@ def relative_pos_encoding(xyz: torch.Tensor, neigh_idx: torch.Tensor,
     return torch.cat([dist, rel, center.expand(neigh_xyz.shape), neigh_xyz], dim=-1)
 
 
+def _angle(v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+    """The angle between v1 and v2 (..., 3) as atan2(|v1 x v2|, v1.v2); 0
+    where either is zero."""
+    cross = torch.linalg.cross(v1, v2, dim=-1)
+    return torch.atan2(torch.linalg.vector_norm(cross, dim=-1), torch.sum(v1 * v2, dim=-1))
+
+
+@torch.no_grad()
+def ppf_grouping(xyz: torch.Tensor, normals: torch.Tensor,
+                 neigh_idx: torch.Tensor) -> torch.Tensor:
+    """Point-pair features [xyz, rel_xyz, angle(n_i, d), angle(n_j, d),
+    angle(n_i, n_j), |d|] with d = xyz_j - xyz_i over the neighbours j of
+    each point i: (..., N, 3), (..., N, 3), (..., N, K) -> (..., N, K, 10)
+    (deepsir_tpu/models/randla.py:58-78). Input data only: no graph, so no
+    norm's backward at d = 0 (each point is its own first neighbour)."""
+    grouped = gather_neighbour(xyz, neigh_idx)
+    di = grouped - xyz[..., :, None, :]
+    ni = gather_neighbour(normals, neigh_idx)
+    nr = normals[..., :, None, :].expand(di.shape)
+    ppf = torch.stack([_angle(nr, di), _angle(ni, di), _angle(nr, ni),
+                       torch.linalg.vector_norm(di, dim=-1)], dim=-1)
+    return torch.cat([xyz[..., :, None, :].expand(grouped.shape), di, ppf], dim=-1)
+
+
 class BuildingBlock(nn.Module):
     """Local feature aggregation: LocSE + two attentive poolings."""
 
-    def __init__(self, d_out: int):
+    def __init__(self, d_out: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         half = d_out // 2
-        self.mlp1 = ConvUnit(10, half)
-        self.att_pooling_1 = AttPooling(d_out, half)
-        self.mlp2 = ConvUnit(half, half)
-        self.att_pooling_2 = AttPooling(d_out, d_out)
+        self.mlp1 = ConvUnit(10, half, dtype=dtype)
+        self.att_pooling_1 = AttPooling(d_out, half, dtype=dtype)
+        self.mlp2 = ConvUnit(half, half, dtype=dtype)
+        self.att_pooling_2 = AttPooling(d_out, d_out, dtype=dtype)
 
     def pos_encode(self, xyz: torch.Tensor, neigh_idx: torch.Tensor) -> PosEnc:
         """The positional branch; mlp2 consumes mlp1's output (chained)."""
@@ -71,12 +102,12 @@ class BuildingBlock(nn.Module):
 
 
 class DilatedResBlock(nn.Module):
-    def __init__(self, c_in: int, d_out: int):
+    def __init__(self, c_in: int, d_out: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.mlp1 = ConvUnit(c_in, d_out // 2)
-        self.lfa = BuildingBlock(d_out)
-        self.mlp2 = ConvUnit(d_out, d_out * 2, use_act=False)
-        self.mlp_skip = ConvUnit(c_in, d_out * 2, use_act=False)
+        self.mlp1 = ConvUnit(c_in, d_out // 2, dtype=dtype)
+        self.lfa = BuildingBlock(d_out, dtype)
+        self.mlp2 = ConvUnit(d_out, d_out * 2, use_act=False, dtype=dtype)
+        self.mlp_skip = ConvUnit(c_in, d_out * 2, use_act=False, dtype=dtype)
 
     def pos_encode(self, xyz, neigh_idx) -> PosEnc:
         return self.lfa.pos_encode(xyz, neigh_idx)
@@ -94,22 +125,25 @@ class RandLA(nn.Module):
         d = cfg.d_out
         L = len(d)
         self.post_skips = cfg.randla_skips == "post"
-        self.mlp_pre = ConvUnit(feat_len, 8)
-        c_in = [8] + [2 * x for x in d[:-1]]
-        self.enc = nn.ModuleList(DilatedResBlock(c, x) for c, x in zip(c_in, d))
-        self.mlp_mid = ConvUnit(2 * d[-1], 2 * d[-1])
+        self.use_ppf = cfg.use_ppf
+        self.dtype = dtype = compute_dtype(cfg.compute_dtype)
+        pre = 12 if cfg.use_ppf else 8
+        self.mlp_pre = ConvUnit(10 if cfg.use_ppf else feat_len, pre, dtype=dtype)
+        c_in = [pre] + [2 * x for x in d[:-1]]
+        self.enc = nn.ModuleList(DilatedResBlock(c, x, dtype) for c, x in zip(c_in, d))
+        self.mlp_mid = ConvUnit(2 * d[-1], 2 * d[-1], dtype=dtype)
         dec = []
         x_ch = 2 * d[-1]
         for j in range(L):
             lvl = L - j - 1
             skip = 2 * d[lvl - 1] if self.post_skips and lvl > 0 else 2 * d[lvl]
             out = 2 * d[max(L - j - 2, 0)]
-            dec.append(ConvUnit(skip + x_ch, out))
+            dec.append(ConvUnit(skip + x_ch, out, dtype=dtype))
             x_ch = out
         self.dec = nn.ModuleList(dec)
         self.mlp_out = nn.Linear(x_ch, cfg.out_feat_dim, bias=False)
         self.fc_label = MLP(cfg.out_feat_dim, (cfg.out_feat_dim, 32, num_classes),
-                            norm=cfg.fc_norm)
+                            norm=cfg.fc_norm, dtype=dtype)
         self.dropout_rate = cfg.dropout_rate
 
     def pos_cache(self, pyr: Pyramid) -> Tuple[PosEnc, ...]:
@@ -131,7 +165,11 @@ class RandLA(nn.Module):
     def forward(self, features: torch.Tensor, pyr: Pyramid,
                 pos_cache: Optional[Tuple[PosEnc, ...]] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None):
-        x = self.mlp_pre(features)
+        if self.use_ppf:
+            grouped = ppf_grouping(features[..., :3], features[..., 3:6], pyr.neigh_idx[0])
+            x = torch.mean(self.mlp_pre(grouped), dim=-2)       # (B, N, 12)
+        else:
+            x = self.mlp_pre(features)
         L = len(self.enc)
         skips = []
         for i, enc in enumerate(self.enc):
@@ -147,5 +185,5 @@ class RandLA(nn.Module):
             lvl = L - j - 1
             up = nearest_interpolate(x, pyr.interp_idx[lvl])
             x = dec(torch.cat([skips[lvl], up], dim=-1))
-        feat = self.mlp_out(x)
+        feat = dense(self.mlp_out, x, self.dtype).float()
         return feat, self.fc_label(self.dropout(feat, generator) if train else feat)

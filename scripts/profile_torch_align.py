@@ -85,14 +85,14 @@ def main() -> int:
     from deepsir_tpu_torch.utils.params import init_params, load_network
 
     dev = torch.device("cuda", 0)
-    _, stride, _ = chip_smoke.PATHS[args.path]
+    stride = chip_smoke.PATHS[args.path][1]
     cfg = chip_smoke.path_config(args.path)
     options = {k: v for k, v in vars(cfg).items() if v != getattr(type(cfg), k)}
     model = load_network(cfg, init_params(cfg, seed=0), device=dev)
     opts = ForwardOptions(num_iter=cfg.num_reg_iter, clip_weight=True, refine_stride=stride)
     rng = np.random.default_rng(0)
     morton = cfg.pyramid_order == "morton"
-    feeds = [chip_smoke.make_arrays(rng, args.batch, morton, cfg.feat_len)
+    feeds = [chip_smoke.make_arrays(rng, args.batch, morton, cfg.feat_len, cfg.use_ppf)
              for _ in range(args.reps + 1)]
 
     def timed(fn):

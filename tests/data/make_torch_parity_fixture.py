@@ -23,8 +23,15 @@ PyTorch port against it where JAX is absent:
   ICP over exact nearest neighbours), and the label and feat sweeps on the
   stages fixture's pairs (`eval`).
 
+- tests/data/torch_parity_precision.npz: the staged align checkpoint's
+  forward on the checkpoint pairs at 1024 points under bf16 compute (B16;
+  B16F with the `dist,recip` channels, the inlier input layer widened by
+  two seeded rows), bf16 inlier net only (I16) and their fp32
+  counterparts, with the bf16 search through the `matcher` hook, and one
+  align training step in bf16 and in fp32 (`precision`).
+
 Run on the CPU with JAX installed:
-    python tests/data/make_torch_parity_fixture.py [small] [paths] [ckpt] [train] [stages] [eval]
+    python tests/data/make_torch_parity_fixture.py [small] [paths] [ckpt] [train] [stages] [eval] [cli] [precision]
 
 Each file holds the model config (`model_json`), the flax params
 (`param/<path>`), the input arrays, both clouds' pyramid indices and the
@@ -193,14 +200,10 @@ def exact_pyramid(xyz: np.ndarray, num_knn: int, ratios):
     return Pyramid(*(tuple(v) for v in levels))
 
 
-def ckpt_outputs(ckpt: str, arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """The JAX forward of a tracked align checkpoint on `arrays` (5
-    iterations, clip_weight): transforms, matches and `invalid` over exact
-    pyramids; pose errors and success flags as the eval runs it."""
+def align_params(arrays, ckpt: str = CKPTS[0]):
+    """A tracked align checkpoint's params (partial_restore, every leaf)."""
     import jax
-    from deepsir_tpu.math.se3 import pose_error
     from deepsir_tpu.models import ForwardOptions, Network
-    from deepsir_tpu.models.network import PairBatch
     from deepsir_tpu.training import device_batch
     from deepsir_tpu.utils.checkpoint import partial_restore
     cfg = run_config(ckpt, arrays["points_src"].shape[1])
@@ -211,6 +214,22 @@ def ckpt_outputs(ckpt: str, arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarr
     target = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), target)
     params, loaded = partial_restore(str(ROOT / ckpt / "ckpt"), target)
     assert loaded == len(jax.tree_util.tree_leaves(target)), loaded
+    return params
+
+
+def ckpt_outputs(ckpt: str, arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The JAX forward of a tracked align checkpoint on `arrays` (5
+    iterations, clip_weight): transforms, matches and `invalid` over exact
+    pyramids; pose errors and success flags as the eval runs it."""
+    import jax
+    from deepsir_tpu.math.se3 import pose_error
+    from deepsir_tpu.models import ForwardOptions, Network
+    from deepsir_tpu.models.network import PairBatch
+    from deepsir_tpu.training import device_batch
+    cfg = run_config(ckpt, arrays["points_src"].shape[1])
+    model = Network(cfg.model, pipeline="align")
+    opts = ForwardOptions(num_iter=cfg.model.num_reg_iter, clip_weight=True)
+    params = align_params(arrays, ckpt)
 
     m = cfg.model
     pyramids = [exact_pyramid(arrays[f"points_{s}"][..., :3], m.num_knn, m.sub_sampling_ratio)
@@ -711,13 +730,203 @@ def build_cli() -> Dict[str, np.ndarray]:
     return fixture
 
 
+OUT_PRECISION = Path(__file__).with_name("torch_parity_precision.npz")
+# XLA on the CPU drops a bf16 rounding that a convert back to fp32 follows
+# ("excess precision"), in one fusion and not in its twin (a GroupNorm's
+# statistics see the rounded Dense output, its normalisation the unrounded
+# one). With it off every bf16 op of a jitted forward rounds, as flax's bf16
+# Dense defines it op by op.
+XLA_BF16 = {"xla_allow_excess_precision": False}
+# the staged align checkpoint's config plus these options; "F" (fp32) is
+# B16F's fp32 counterpart, "F32" the others'
+PRECISION_PATHS = {"B16": dict(compute_dtype="bfloat16"),
+                   "B16F": dict(compute_dtype="bfloat16", inlier_extra_feats="dist,recip",
+                                clip_weight_thresh=0.05),
+                   "I16": dict(inlier_compute_dtype="bfloat16"),
+                   "F": dict(inlier_extra_feats="dist,recip", clip_weight_thresh=0.05),
+                   "F32": {}}
+DESC_ROW_STRIDE = 16      # the fixture keeps every 16th descriptor row (size)
+EXTRA_ROWS_SEED = 13
+
+
+def bf16_matcher(a, b):
+    """The bf16 form of the correspondence search as `Network.matcher`:
+    (B, N, C) x (B, M, C) -> (B, N) int32, argmin of |b|^2 - 2 bf16(a).bf16(b)
+    with the norms from the fp32 inputs and fp32 sums, the lowest index on
+    ties: what ops/pallas_match.py::match_argmin_single(low_precision=True)
+    computes (its interpreted form is held against this in
+    tests/test_torch_precision.py). JAX's CPU search ignores
+    low_precision, so the bf16 fixtures pass this hook."""
+    import jax
+    import jax.numpy as jnp
+    a, b = jax.lax.stop_gradient(a), jax.lax.stop_gradient(b)
+    prod = jnp.einsum("bnc,bmc->bnm", a.astype(jnp.bfloat16), b.astype(jnp.bfloat16),
+                      preferred_element_type=jnp.float32)
+    return jnp.argmin(jnp.sum(b * b, axis=-1)[:, None, :] - 2.0 * prod,
+                      axis=-1).astype(jnp.int32)
+
+
+def extra_rows(width: int) -> np.ndarray:
+    """Two seeded rows (he-normal scale) that widen the staged checkpoint's
+    inlier input layer for the `dist` and `recip` channels (B16F, F)."""
+    rng = np.random.default_rng(EXTRA_ROWS_SEED)
+    return (rng.normal(size=(2, width)) * np.sqrt(2.0 / 8)).astype(np.float32)
+
+
+def precision_params(params, extras: bool):
+    """The staged align checkpoint's params; with `extras` its inlier
+    `mlp_pre` kernel (6, 8) gets extra_rows below it."""
+    import copy
+    params = copy.deepcopy(params)
+    if extras:
+        dense = params["params"]["inlier_model"]["mlp_pre"]["Dense_0"]
+        dense["kernel"] = np.concatenate([np.asarray(dense["kernel"]),
+                                          extra_rows(dense["kernel"].shape[1])])
+    return params
+
+
+def precision_config(name: str, num_points: int = 1024):
+    from deepsir_tpu.config import replace
+    cfg = run_config(CKPTS[0], num_points)
+    return replace(cfg, model=replace(cfg.model, **PRECISION_PATHS[name]))
+
+
+def precision_model(cfg):
+    """JAX's align Network for `cfg`, with the bf16 search hook under bf16
+    compute."""
+    from deepsir_tpu.models import Network
+    bf16 = cfg.model.compute_dtype == "bfloat16"
+    return Network(cfg.model, pipeline="align", matcher=bf16_matcher if bf16 else None)
+
+
+def precision_forward(name: str, params, arrays) -> Dict[str, np.ndarray]:
+    """JAX's align forward of a PRECISION_PATHS entry over exact pyramids (5
+    iterations, clip_weight): transforms, matches, `invalid`, the
+    iteration-1 inlier logits, the success flags of the final pose, and the
+    iteration-1 descriptors of both clouds (every DESC_ROW_STRIDE-th row)."""
+    import jax
+    from deepsir_tpu.math.se3 import pose_error
+    from deepsir_tpu.models import ForwardOptions
+    from deepsir_tpu.models.network import PairBatch
+    cfg = precision_config(name, arrays["points_src"].shape[1])
+    model = precision_model(cfg)
+    opts = ForwardOptions(num_iter=cfg.model.num_reg_iter, clip_weight=True)
+    m = cfg.model
+    pyramids = [exact_pyramid(arrays[f"points_{s}"][..., :3], m.num_knn, m.sub_sampling_ratio)
+                for s in ("src", "ref")]
+
+    def descriptors(mdl, batch):
+        fs, ls, fr, lr, _, _ = mdl.backbone_pair(batch, train=False)
+        ss, sr = mdl.score_pair(batch, fs, fr, ls, lr)
+        return (mdl.aggregate_side(batch.points_src[..., :3], fs, ss),
+                mdl.aggregate_side(batch.points_ref[..., :3], fr, sr))
+
+    def run(p, a, pyr_src, pyr_ref):
+        batch = PairBatch(a["points_src"], a["points_ref"], pyr_src, pyr_ref,
+                          a["transform_gt"], mask_src=a["mask_src"], mask_ref=a["mask_ref"])
+        _, out = model.apply(p, batch, opts, train=False)
+        return out, model.apply(p, batch, method=descriptors)
+
+    out, (desc_src, desc_ref) = jax.device_get(
+        jax.jit(run, compiler_options=XLA_BF16)(params, arrays, *pyramids))
+    rre, rte = (np.asarray(e) for e in pose_error(arrays["transform_gt"], out.transforms[-1]))
+    return {"transforms": np.asarray(out.transforms), "pred_idx": np.asarray(out.pred_idx, np.uint16),
+            "invalid": np.asarray(out.invalid), "logits1": np.asarray(out.inlier_logits[0]),
+            "succ": (rte < cfg.eval.rte_thresh) & (rre < cfg.eval.rre_thresh),
+            "desc_src": np.asarray(desc_src)[:, ::DESC_ROW_STRIDE],
+            "desc_ref": np.asarray(desc_ref)[:, ::DESC_ROW_STRIDE]}
+
+
+def precision_step(compute: str) -> Dict[str, np.ndarray]:
+    """One align training step of the staged checkpoint resumed with its
+    Adam state, at dropout 0 on the train fixture's pairs over exact
+    pyramids, with `compute_dtype` and `inlier_compute_dtype` both
+    `compute` (bf16 with the search hook): the loss terms, `skipped`, the
+    matches, the inlier grads (chip_smoke.summarize_leaf) and the dtypes of
+    the params after the step."""
+    import jax
+    import optax
+    from flax.traverse_util import flatten_dict
+    from chip_smoke import summarize_leaf
+    from deepsir_tpu.config import replace
+    from deepsir_tpu.models import ForwardOptions
+    from deepsir_tpu.models.network import PairBatch
+    from deepsir_tpu.training import compute_loss, create_train_state, make_optimizer
+    from deepsir_tpu.utils.checkpoint import CheckPointManager
+    cfg = run_config(num_points=1024)
+    cfg = replace(cfg, model=replace(cfg.model, dropout_rate=0.0, compute_dtype=compute,
+                                     inlier_compute_dtype=compute))
+    arrays = ckpt_pairs(1024, TRAIN_PAIRS)
+    _, template = create_train_state(cfg, arrays, TRAIN_STEPS_PER_EPOCH)
+    ckpt = str(ROOT / CKPTS[0] / "ckpt")
+    state, _ = CheckPointManager(ckpt).load(ckpt, template)
+    model = precision_model(cfg)
+    m = cfg.model
+    pyramids = [exact_pyramid(arrays[f"points_{s}"][..., :3], m.num_knn, m.sub_sampling_ratio)
+                for s in ("src", "ref")]
+    batch = PairBatch(arrays["points_src"], arrays["points_ref"], *pyramids,
+                      arrays["transform_gt"], mask_src=arrays["mask_src"],
+                      mask_ref=arrays["mask_ref"])
+    opts = ForwardOptions(num_iter=m.num_train_reg_iter)
+    rng = jax.random.PRNGKey(0)
+    tx = make_optimizer(cfg, TRAIN_STEPS_PER_EPOCH)
+
+    def step(p, opt_state):
+        (loss, aux), g = jax.value_and_grad(
+            lambda q: compute_loss(cfg, model, q, batch, opts, True, rng), has_aux=True)(p)
+        _, out = model.apply(p, batch, opts, train=True, rngs={"dropout": rng})
+        updates, _ = tx.update(g, opt_state, p)
+        return loss, aux, g, out.pred_idx, optax.apply_updates(p, updates)
+
+    loss, aux, grads, pred, params = jax.device_get(
+        jax.jit(step, compiler_options=XLA_BF16)(state.params, state.opt_state))
+    ok = (np.isfinite(loss) and not aux["invalid"]
+          and all(np.isfinite(g).all() for g in jax.tree_util.tree_leaves(grads)))
+    fixture = {"loss": np.asarray(loss), "skipped": np.asarray(not ok),
+               "pred_idx": np.asarray(pred, np.uint16)}
+    for key, value in aux["losses"].items():
+        fixture[f"term/{key}"] = np.asarray(value)
+    for path, leaf in flatten_dict(grads["params"]["inlier_model"]).items():
+        for field, value in summarize_leaf(np.asarray(leaf)).items():
+            fixture[f"grad/inlier_model/{'/'.join(path)}/{field}"] = value
+    fixture["params_dtypes"] = np.asarray(sorted({str(np.asarray(a).dtype) for a in
+                                                  jax.tree_util.tree_leaves(params)}))
+    return fixture
+
+
+def build_precision() -> Dict[str, np.ndarray]:
+    """The precision fixture's arrays: the checkpoint fixture's 8 pairs at
+    1024 points (read back from OUT_CKPT) under each PRECISION_PATHS entry
+    (`<path>/...`), the extra inlier rows of B16F and F, and the align step
+    in bf16 (`step_bf16/...`) and in fp32 (`step_f32/...`)."""
+    from chip_smoke import checkpoint_arrays
+    arrays = checkpoint_arrays(dict(np.load(OUT_CKPT)), 1024)
+    params = align_params(arrays)
+    fixture = {"extra_rows": extra_rows(8), "desc_row_stride": np.asarray(DESC_ROW_STRIDE)}
+    for name, options in PRECISION_PATHS.items():
+        p = precision_params(params, "dist" in options.get("inlier_extra_feats", ""))
+        out = precision_forward(name, p, arrays)
+        if name in ("F", "F32"):          # the fp32 counterparts: what the gaps need
+            keep = ("logits1", "transforms", "pred_idx") + (("desc_src", "desc_ref")
+                                                            if name == "F32" else ())
+            out = {k: out[k] for k in keep}
+        elif name != "B16":               # B16's descriptors are B16F's, F32's I16's
+            del out["desc_src"], out["desc_ref"]
+        for key, value in out.items():
+            fixture[f"{name}/{key}"] = value
+    for compute, prefix in (("bfloat16", "step_bf16"), ("float32", "step_f32")):
+        for key, value in precision_step(compute).items():
+            fixture[f"{prefix}/{key}"] = value
+    return fixture
+
+
 def main(names=("small", "paths", "ckpt", "train", "stages", "eval", "cli")) -> None:
     import jax
     jax.config.update("jax_platforms", "cpu")
     makers = {"small": (OUT, build), "paths": (OUT_PATHS, build_paths),
               "ckpt": (OUT_CKPT, build_ckpt), "train": (OUT_TRAIN, build_train),
               "stages": (OUT_STAGES, build_stages), "eval": (OUT_EVAL, build_eval),
-              "cli": (OUT_CLI, build_cli)}
+              "cli": (OUT_CLI, build_cli), "precision": (OUT_PRECISION, build_precision)}
     for name in names:
         out, make = makers[name]
         np.savez_compressed(out, **make())

@@ -157,7 +157,9 @@ def test_pose_error_matches_jax():
 def test_chip_smoke_launch_counts_follow_the_geometry(name):
     """Each path's stated launches per batch are what the window geometry and
     the refine subset give (R: 16 + 8 K1 launches, the subset's pyramid
-    searching 4500, 1125, 281 and 70 points)."""
-    _, stride, per_batch = chip_smoke.PATHS[name]
+    searching 4500, 1125, 281 and 70 points), and its bf16-form K2/K3
+    launches what its compute dtype gives (B16, B16F: all of them)."""
+    _, stride, per_batch, bf16_per_batch = chip_smoke.PATHS[name]
     cfg = chip_smoke.path_config(name)
     assert tuple(chip_smoke.expected_launches(cfg, stride).values()) == per_batch
+    assert tuple(chip_smoke.expected_bf16_launches(cfg, stride).values()) == bf16_per_batch

@@ -68,6 +68,28 @@ def test_resolution_and_short_flags_match_jax(argv):
         port_config.train_argument_parser().parse_args(argv.split())).resolved()
 
 
+@pytest.mark.parametrize("argv", [
+    "--compute_dtype bfloat16",
+    "--inlier_compute_dtype bfloat16",
+    "--use_ppf true --feat_len 6",
+    "--matmul_precision default",
+    "--compute_dtype bfloat16 --inlier_compute_dtype bfloat16 --use_ppf true --feat_len 6 "
+    "--matmul_precision high --pipeline label",
+])
+@pytest.mark.parametrize("train", [True, False])
+def test_precision_and_ppf_flags_resolve_as_in_jax(argv, train):
+    """The bf16, PPF and matmul-precision flags give JAX's config and
+    config.json, and a network of every pipeline builds from them."""
+    want, got = _both(argv.split(), train)
+    assert json.dumps(dataclasses.asdict(got), indent=2, default=str) == \
+        json.dumps(dataclasses.asdict(want), indent=2, default=str)
+    port_config.check_supported(got.model)
+    from deepsir_tpu_torch.models.network import Network
+    small = port_config.replace(got.model, d_out=(8, 16), sub_sampling_ratio=(4, 4))
+    for pipeline in port_config.PIPELINES:
+        Network(small, pipeline)
+
+
 def test_dev_and_dataset_constants():
     dev = _parsed(port_config, "--dev --num_points 4096 --num_workers 8".split(), True)
     assert (dev.model.num_points, dev.data.synthetic_train_size, dev.data.synthetic_eval_size,

@@ -78,8 +78,12 @@ def test_each_ignored_key_is_named_with_its_reason():
 
 @pytest.mark.parametrize("value", ["default", "high"])
 def test_matmul_precision_other_than_highest_raises(value):
+    """The JAX flag's three names are read (each at fp32 grade); a name
+    outside them raises, naming the field."""
     run = json.loads(STAGED.read_text())
     run["model"]["matmul_precision"] = value
+    assert from_run_config(run).matmul_precision == value
+    run["model"]["matmul_precision"] = value + "est-ever"
     with pytest.raises(NotImplementedError, match="matmul_precision"):
         from_run_config(run)
 

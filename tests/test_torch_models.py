@@ -162,7 +162,7 @@ def test_options_outside_the_slice_raise(option, value):
 
 # option -> a value still outside the slice (None: every value is admitted)
 ADMITTED = {"fc_norm": "layer", "randla_skips": "mid", "absolute_pose_solve": None,
-            "refine_stride": 0,
+            "refine_stride": 0, "compute_dtype": "float16",
             "inlier_num_knn": -1, "backbone_num_knn": -1, "inlier_num_layers": 2}
 
 

@@ -210,8 +210,14 @@ def run_jax_step(jcfg, params, batch):
 @pytest.mark.parametrize("name", list(STEPS))
 def test_train_step_equals_jax_and_keeps_frozen_params(name):
     pipeline, model_kw, loss_kw = STEPS[name]
+    check_step(pipeline, model_kw, loss_kw)
+
+
+def check_step(pipeline, model_kw, loss_kw, make_arrays=synthetic_arrays):
+    """One train_step of `pipeline` against JAX's (the module docstring's
+    rules) on the arrays `make_arrays(jcfg)`."""
     jcfg, cfgs = configs(pipeline, model_kw, loss_kw)
-    arrays = synthetic_arrays(jcfg)
+    arrays = make_arrays(jcfg)
     state = init_params(cfgs.model, seed=3, pipeline=pipeline)
     model = Network(cfgs.model, pipeline)
     model.load_state_dict(state)
