@@ -79,13 +79,23 @@ checkpoint against JAX's, B16 and B16F at full width against the same
 forward with every kernel replaced by its plain version, a full-width
 bf16 align step and a `use_ppf` label step against the plain versions,
 and the test command with --compute_dtype bfloat16 on 4 full-width
-pairs. Imports neither JAX nor the JAX package.
+pairs; and the multi-device paths ("parallel" phase): a process group of
+this one process through `parallel.distributed.initialize_from_env`
+(NCCL), its (1, 1) mesh, the staged align checkpoint at 18000 points
+through `make_sharded_train_step` (B=2, the Adam state resumed and
+replicated) against `train_step`, and through `make_sharded_eval_step`
+(B=1, default and F+gate) against `make_eval_step`, each timed in turns;
+and the ring search's arithmetic over 2 and 4 slices of 18000 x 18000 x 64
+descriptors, each rank's walk with `_local_min` (K2) and `_merge` in one
+process, against K2 over the whole reference, also on tiled duplicates.
+Imports neither JAX nor the JAX package.
 
 Output: one line per phase with its wall time; then a JSON line
 {"paths": [...]}, a JSON line {"checkpoint": {...}}, a JSON line
 {"train": {...}}, a JSON line {"stages": {...}}, a JSON line
 {"eval": {...}} (with the card's name and power limit), a JSON line
 {"cli": {...}}, a JSON line {"precision": {...}}, a JSON line
+{"parallel": {...}} (with the card's name and power limit), a JSON line
 {"kernels": [...]} (K2's and K3's launches by operand form under
 "forms"), the card's name and power
 limit as nvidia-smi reports them, and last {"ok": true, "device": {...}}.
@@ -3151,6 +3161,246 @@ def check_precision(torch, dev, smi: str):
     return total, total_lp, record
 
 
+PARALLEL_PAIRS = 2                # the train step's batch: the checkpoint fixture's first pairs
+PARALLEL_SHARDS = (2, 4)          # the ring's ranks, walked in one process
+PARALLEL_TILES = 4                # the duplicate case: 4 copies of a quarter of the rows
+PARALLEL_REPS = 8                 # timed runs of each step, in turns
+PARALLEL_EVAL = ("default", "F+gate")   # PATHS' options, on the staged checkpoint
+
+
+@contextmanager
+def process_group(dev):
+    """A process group of this one process through
+    `parallel.distributed.initialize_from_env` (NCCL on the card, gloo on
+    the CPU), the DEEPSIR_* variables set while it starts; destroyed at the
+    end. Yields the backend's name."""
+    import os
+    import socket
+    import torch.distributed as dist
+    from deepsir_tpu_torch.parallel.distributed import initialize_from_env
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"DEEPSIR_COORDINATOR": f"localhost:{port}", "DEEPSIR_NUM_PROCESSES": "1",
+           "DEEPSIR_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        started = initialize_from_env(dev.type)
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key)
+            else:
+                os.environ[key] = value
+    if not started:
+        raise AssertionError("parallel: initialize_from_env started no process group")
+    try:
+        yield str(dist.get_backend())
+    finally:
+        dist.destroy_process_group()
+
+
+def ring_walks(torch, src, ref, shards: int):
+    """The ring search of `src` over `ref` split into `shards` slices, as
+    the ranks of a model axis walk it, in one process: rank r meets slice
+    (r - k) % shards at hop k, searches it with `parallel.matching._local_min`
+    (K2 on the card) and merges with `_merge`. Returns each rank's result
+    (shards x shards K2 launches)."""
+    from deepsir_tpu_torch.parallel.matching import _local_min, _merge
+    m_local = ref.shape[1] // shards
+    slices = [ref[:, k * m_local:(k + 1) * m_local].contiguous() for k in range(shards)]
+    out = []
+    for me in range(shards):
+        best_d = torch.full(src.shape[:-1], float("inf"), device=src.device)
+        best_i = torch.zeros(src.shape[:-1], dtype=torch.int64, device=src.device)
+        for k in range(shards):
+            owner = (me - k) % shards
+            d, idx = _local_min(src, slices[owner])
+            best_d, best_i = _merge(best_d, best_i, d, idx, owner, m_local)
+        out.append(best_i)
+    return out
+
+
+def ring_parity(torch, dev, gen, n: int = N_POINTS, c: int = 64):
+    """The ring's arithmetic over 2 and 4 slices of n x n unit descriptors
+    (C = c, B = 1): every rank's result the same, and equal to K2 over the
+    whole reference but for near ties (`_search_near_ties`); on a reference
+    of PARALLEL_TILES copies of its first quarter, every rank's result equal
+    to K2 over that quarter (exact ties to the lowest global index). On the
+    card each walk is timed against K2 over the whole reference. Returns
+    (launches of the checked walks, record)."""
+    from deepsir_tpu_torch.ops.distance import nearest_neighbour_index
+    src, ref = (_unit_descriptors(torch, gen, dev, 1, n, c) for _ in range(2))
+    base = _unit_descriptors(torch, gen, dev, 1, n // PARALLEL_TILES, c)
+    tiled = base.repeat(1, PARALLEL_TILES, 1)
+    whole, want_tiled = nearest_neighbour_index(src, ref), nearest_neighbour_index(src, base)
+    counted = kernels()
+    reset_counts(counted)
+    walks = {d: (ring_walks(torch, src, ref, d), ring_walks(torch, src, tiled, d))
+             for d in PARALLEL_SHARDS}
+    launches, _ = read_counts(counted)
+    want = dict.fromkeys(COUNTED, 0) | {"match_argmin": 2 * sum(d * d for d in PARALLEL_SHARDS)}
+    if dev.type == "cuda" and launches != want:
+        raise AssertionError(f"parallel ring: launches {launches}, expected {want}")
+    record = {}
+    for d, (plain, dup) in walks.items():
+        for what, results in (("random", plain), ("tiled", dup)):
+            if not all(torch.equal(r, results[0]) for r in results[1:]):
+                raise AssertionError(f"parallel ring d={d} {what}: the ranks disagree")
+        if not torch.equal(dup[0], want_tiled):
+            raise AssertionError(f"parallel ring d={d}: duplicates not to the lowest index")
+        rec = {"near_ties": _search_near_ties(torch, src, ref, plain[0], whole)}
+        if dev.type == "cuda":
+            ring_ms = cuda_ms(lambda: ring_walks(torch, src, ref, d), TIMED_REPS) / d
+            rec.update(ms_per_rank=ring_ms, k2_whole_ms=cuda_ms(
+                lambda: nearest_neighbour_index(src, ref), TIMED_REPS))
+        record[f"d{d}"] = rec
+    log(f"parallel ring at {n} x {n} x {c}: {json.dumps(record)}")
+    return launches, record
+
+
+def _timed_turns(torch, first, second, reps: int):
+    """Host-clock ms of each of two calls, each ending in a synchronize, in
+    turns (first, second, second, first, ...); returns the two medians."""
+    times = ([], [])
+    for rep in range(reps):
+        order = (0, 1) if rep % 2 == 0 else (1, 0)
+        for i in order:
+            t0 = time.perf_counter()
+            (first, second)[i]()
+            torch.cuda.synchronize()
+            times[i].append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[0])), float(np.median(times[1]))
+
+
+def parallel_steps(torch, dev, mesh, n: int = N_POINTS, pairs: int = PARALLEL_PAIRS):
+    """The staged align checkpoint at n points (its run config, dropout 0.5
+    from seeded generators) through the sharded steps of `mesh`, a mesh
+    without a model axis, against the plain steps on the whole batch on
+    each rank's card: `make_sharded_train_step` (the state resumed with its
+    Adam moments, `replicate_state`, B = `pairs`, the checkpoint fixture's
+    pairs in turn) against `training.train_step`: this rank's matches equal
+    in every iteration, loss terms within 1e-4 relative, grads within 1e-3
+    of each leaf's scale, the params after the step within 1e-6;
+    `make_sharded_eval_step` (B = the data axis's size, each PARALLEL_EVAL
+    setting) against `make_eval_step` pair by pair (one pair on each rank):
+    pred_idx equal, transforms within 1e-6, `invalid` equal. On the card
+    each pair of steps is also timed in turns, the plain eval step on the
+    whole batch. Returns (launches of the sharded steps, record)."""
+    from deepsir_tpu_torch.config import read_run_config, replace
+    from deepsir_tpu_torch.models.network import Network
+    from deepsir_tpu_torch.parallel import (make_sharded_eval_step, make_sharded_train_step,
+                                            replicate_state, shard_batch)
+    from deepsir_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+    from deepsir_tpu_torch.training import make_eval_step, make_optimizer, train_step
+    from deepsir_tpu_torch.utils.checkpoint import load_train_state, read_params
+    from deepsir_tpu_torch.utils.params import from_jax_params, trainable_parameters
+    cuda = dev.type == "cuda"
+    cfgs = read_run_config(CKPT_RUN)
+    cfgs = cfgs._replace(model=replace(cfgs.model, num_points=n))
+    if mesh.shape[MODEL_AXIS] != 1:
+        raise ValueError(f"parallel_steps: mesh {dict(mesh.shape)} has a model axis")
+    arrays = {k: v[np.arange(pairs) % len(v)]
+              for k, v in checkpoint_arrays(dict(np.load(CKPT_FIXTURE)), n).items()}
+
+    def resumed():
+        model = Network(cfgs.model).to(dev)
+        opt = make_optimizer(model)
+        load_train_state(CKPT_RUN / "ckpt", model, opt)
+        return model, opt
+    (model, opt), (ref_model, ref_opt) = resumed(), resumed()
+    replicate_state(mesh, model, opt)
+    sharded_train = make_sharded_train_step(mesh)
+    counted = kernels()
+    total = dict.fromkeys(COUNTED, 0)
+    reset_counts(counted)
+    got = sharded_train(model, opt, cfgs, shard_batch(mesh, arrays),
+                        torch.Generator(dev).manual_seed(2), STAGE_STEPS_PER_EPOCH)
+    launches, _ = read_counts(counted)
+    if cuda and tuple(launches.values()) != TRAIN_CASES["default"][1]:
+        raise AssertionError(f"parallel train step: launches {launches}")
+    for key in COUNTED:
+        total[key] += launches[key]
+    want = train_step(ref_model, ref_opt, cfgs, arrays, torch.Generator(dev).manual_seed(2),
+                      STAGE_STEPS_PER_EPOCH)
+    want_idx = shard_batch(mesh, {"idx": want["pred_idx"].transpose(0, 1)})["idx"]
+    if got["skipped"] or want["skipped"] or not torch.equal(got["pred_idx"],
+                                                            want_idx.transpose(0, 1)):
+        raise AssertionError("parallel train step: skipped, or matches differ from the plain "
+                             "step's")
+    terms = {k: abs(float(v) - float(want["losses"][k])) / abs(float(want["losses"][k]))
+             for k, v in got["losses"].items()}
+    terms["total"] = abs(float(got["loss"]) - float(want["loss"])) / abs(float(want["loss"]))
+    if max(terms.values()) > 1e-4:
+        raise AssertionError(f"parallel train step: loss terms {terms}")
+    grad_err = _grads_agree(got["grads"], want["grads"], 1e-3)
+    param_err = max(float((a - b).detach().abs().max()) for (_, a), (_, b)
+                    in zip(trainable_parameters(model), trainable_parameters(ref_model)))
+    if param_err > 1e-6:
+        raise AssertionError(f"parallel train step: params after the step {param_err} apart")
+    record = {"train": {"term_rel_err": max(terms.values()), "grad_rel_err": grad_err,
+                        "param_err": param_err, "launches": launches}}
+    if cuda:
+        sharded_ms, plain_ms = _timed_turns(
+            torch, lambda: sharded_train(model, opt, cfgs, shard_batch(mesh, arrays),
+                                         torch.Generator(dev).manual_seed(3),
+                                         STAGE_STEPS_PER_EPOCH),
+            lambda: train_step(ref_model, ref_opt, cfgs, arrays,
+                               torch.Generator(dev).manual_seed(3), STAGE_STEPS_PER_EPOCH),
+            PARALLEL_REPS)
+        record["train"].update(sharded_ms=sharded_ms, plain_ms=plain_ms)
+
+    state = from_jax_params(read_params(CKPT_RUN / "ckpt"), Network(cfgs.model))
+    extra_rows = dict(np.load(PRECISION_FIXTURE))["extra_rows"]
+    eval_batch = {k: v[:mesh.shape[DATA_AXIS]] for k, v in arrays.items()}
+    for name in PARALLEL_EVAL:
+        options, _, per_step, _ = PATHS[name]
+        cfg = replace(cfgs.model, **options)
+        net = _precision_model(cfg, state, extra_rows, dev)
+        sharded_eval, plain_eval = make_sharded_eval_step(net, cfg, mesh), make_eval_step(net, cfg)
+        reset_counts(counted)
+        _, out = sharded_eval(shard_batch(mesh, eval_batch))
+        launches, _ = read_counts(counted)
+        if cuda and tuple(launches.values()) != per_step:
+            raise AssertionError(f"parallel eval {name}: launches {launches}")
+        for key in COUNTED:
+            total[key] += launches[key]
+        # the plain step pair by pair, as each rank holds one: the same products
+        singles = [plain_eval({k: v[i:i + 1] for k, v in eval_batch.items()})[1]
+                   for i in range(mesh.shape[DATA_AXIS])]
+        err = float((out.transforms - torch.cat([o.transforms for o in singles], 1)).abs().max())
+        rows_differ = int((out.pred_idx != torch.cat([o.pred_idx for o in singles], 1)).sum())
+        if (rows_differ or err > 1e-6
+                or not torch.equal(out.invalid, torch.cat([o.invalid for o in singles]))):
+            raise AssertionError(f"parallel eval {name}: differs from make_eval_step "
+                                 f"(transforms {err}, {rows_differ} matches)")
+        record[f"eval {name}"] = {"transform_err": err, "launches": launches}
+        if cuda:
+            sharded_ms, plain_ms = _timed_turns(
+                torch, lambda: sharded_eval(shard_batch(mesh, eval_batch)),
+                lambda: plain_eval(eval_batch), PARALLEL_REPS)
+            record[f"eval {name}"].update(sharded_ms=sharded_ms, plain_ms=plain_ms)
+    log(f"parallel steps at {n} points: {json.dumps(record)}")
+    return total, record
+
+
+def check_parallel(torch, dev, smi: str, n: int = N_POINTS, pairs: int = PARALLEL_PAIRS):
+    """The "parallel" phase: a one-process group (NCCL on the card), its
+    (1, 1) mesh, `parallel_steps` and `ring_parity`. Returns (launches of
+    the sharded steps and the checked ring walks, the phase's record, with
+    the card's name and power limit)."""
+    from deepsir_tpu_torch.parallel import make_mesh
+    with process_group(dev) as backend:
+        mesh = make_mesh()
+        total, steps = parallel_steps(torch, dev, mesh, n, pairs)
+    launches, ring = ring_parity(torch, dev, torch.Generator().manual_seed(7), n)
+    for key in COUNTED:
+        total[key] += launches[key]
+    return total, {"device": smi, "backend": backend, "mesh": dict(mesh.shape), **steps,
+                   "ring": ring}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3227,6 +3477,10 @@ def main() -> int:
             total[key] += n
         for key, n in launches_lp.items():
             total_lp[key] += n
+    with phase("parallel"):
+        launches, parallel = check_parallel(torch, dev, smi)
+        for key, n in launches.items():
+            total[key] += n
     log(json.dumps({"paths": paths}))
     log(json.dumps({"checkpoint": ckpt}))
     log(json.dumps({"train": train}))
@@ -3234,6 +3488,7 @@ def main() -> int:
     log(json.dumps({"eval": evaluation}))
     log(json.dumps({"cli": cli}))
     log(json.dumps({"precision": precision}))
+    log(json.dumps({"parallel": parallel}))
     for entry, key in zip((k1, k4, k2, k3), COUNTED):
         entry["launches"] = total[key]
     for entry, key in zip((k2, k3), LP_COUNTED):

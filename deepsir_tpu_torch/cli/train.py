@@ -15,17 +15,29 @@ summary_every steps the summaries (utils/summary.py); validation every
 validate_every steps (negative: epochs; 0: never) scores a checkpoint
 (align: success rate, label: mIoU, feat: the negative mean loss); the last
 step is always saved, as the best when no validation ran. Runs on the card
-unless given --device cpu, on one device.
+unless given --device cpu.
+
+Several cards: one process per card, started with the DEEPSIR_* variables
+(parallel/distributed.py; `torchrun` with DEEPSIR_DISTRIBUTED=1). With
+--data_parallel true and more than one process, the pairs of each batch
+are split over the processes (parallel/sharded.py: the state replicated
+from the first process, each process training on its rows of the loader's
+batch, the step the global batch's); with one process, or without
+--data_parallel, every process runs the plain step. Every process reads
+the data and validates; only the first writes (the run directory, its
+log, summaries and checkpoints), and every process returns its path.
 """
 from __future__ import annotations
 
 import functools
+import logging
 import os
 import sys
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from deepsir_tpu_torch.cli import select_device
 from deepsir_tpu_torch.config import Config, config_from_args, train_argument_parser
@@ -35,13 +47,17 @@ from deepsir_tpu_torch.losses.detdes import det_des_loss
 from deepsir_tpu_torch.losses.semantic import SemanticMetric, confusion_matrix
 from deepsir_tpu_torch.math import se3_np
 from deepsir_tpu_torch.models.network import Network
+from deepsir_tpu_torch.parallel import (make_mesh, make_sharded_train_step, replicate_state,
+                                        shard_batch)
+from deepsir_tpu_torch.parallel.distributed import initialize_from_env
 from deepsir_tpu_torch.training import (batch_arrays_only, forward_step, lr_at,
                                         make_eval_step, make_optimizer, train_step)
-from deepsir_tpu_torch.utils.checkpoint import CheckPointManager, partial_restore
+from deepsir_tpu_torch.utils.checkpoint import (CheckPointManager, load_train_state,
+                                                partial_restore)
 from deepsir_tpu_torch.utils.logging import prepare_logger, snapshot_source
 from deepsir_tpu_torch.utils.metrics import compute_metrics, summarize_metrics
 from deepsir_tpu_torch.utils.params import init_params
-from deepsir_tpu_torch.utils.prefetch import device_prefetch
+from deepsir_tpu_torch.utils.prefetch import device_prefetch, to_device
 from deepsir_tpu_torch.utils.profiling import StepTracer, enable_debug_mode
 from deepsir_tpu_torch.utils.summary import SummaryWriter
 from deepsir_tpu_torch.utils.timer import Timer
@@ -140,10 +156,11 @@ def make_validate_step(cfg: Config, model: Network):
     return functools.partial(forward_step, model, cfg.model)
 
 
-def _summaries(writer, cfg, step, steps_per_epoch, aux, val_step, arrays) -> None:
+def _summaries(writer, cfg, step, steps_per_epoch, aux, val_step, arrays,
+               mesh_summaries: bool = True) -> None:
     """The scalars of a step (the loss, the learning rate, each loss term,
-    and the step's flags and accuracy) and, for align, the train batch's
-    alignment mesh."""
+    and the step's flags and accuracy) and, for align with
+    `mesh_summaries`, the train batch's alignment mesh."""
     writer.add_scalar("loss", float(aux["loss"]), step)
     writer.add_scalar("lr", lr_at(step, cfg.train, steps_per_epoch), step)
     for k, v in aux.get("losses", {}).items():
@@ -151,7 +168,7 @@ def _summaries(writer, cfg, step, steps_per_epoch, aux, val_step, arrays) -> Non
     for k in ("acc", "invalid", "skipped"):
         if k in aux:
             writer.add_scalar(k, float(aux[k]), step)
-    if cfg.pipeline == "align":
+    if cfg.pipeline == "align" and mesh_summaries:
         transforms, _ = val_step(arrays)
         mesh_summary(writer, step, _host(arrays), transforms[-1].cpu().numpy(),
                      tag="train_alignment")
@@ -159,21 +176,47 @@ def _summaries(writer, cfg, step, steps_per_epoch, aux, val_step, arrays) -> Non
 
 def main(argv: Optional[Sequence[str]] = None) -> str:
     """Run the train command of `argv` (default: the process's arguments);
-    returns the run directory."""
+    returns the run directory. A process group that this call starts
+    (parallel.distributed.initialize_from_env) ends with it."""
     argv = list(sys.argv[1:] if argv is None else argv)
     args = train_argument_parser().parse_args(argv)
+    # multi-process: join the process group before any device is used
+    owned = not dist.is_initialized() and initialize_from_env(args.device)
+    try:
+        return _train(args, argv)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _train(args, argv) -> str:
     device = select_device(args.device)
     cfg = config_from_args(args)
-    if cfg.train.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError("--data_parallel over several devices is not ported "
-                                  "(ROADMAP.md Queue 1, 'Parallel'); the port trains on "
-                                  "one device")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if (cfg.train.data_parallel and world == 1 and device.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        raise RuntimeError(
+            f"--data_parallel with {torch.cuda.device_count()} cards in one process: start "
+            "one process per card, each with DEEPSIR_COORDINATOR=<host:port>, "
+            "DEEPSIR_NUM_PROCESSES=<processes> and DEEPSIR_PROCESS_ID=<its index> set "
+            "(or under torchrun with DEEPSIR_DISTRIBUTED=1)")
+    if device.type == "cuda" and world > 1:
+        device = torch.device("cuda", torch.cuda.current_device())   # this process's card
     cfgs = cfg.run_config()
-    logger, log_path = prepare_logger(cfg, argv=[PROG] + argv)
     if cfg.debug:
         enable_debug_mode()
-    snapshot_source(log_path)
-    writer = SummaryWriter(os.path.join(log_path, "train"))
+    writer = None
+    if rank == 0:
+        logger, log_path = prepare_logger(cfg, argv=[PROG] + argv)
+        snapshot_source(log_path)
+        writer = SummaryWriter(os.path.join(log_path, "train"))
+    else:
+        logger, log_path = logging.getLogger(PROG), None
+    if world > 1:
+        shared = [log_path]
+        dist.broadcast_object_list(shared, src=0)
+        log_path = shared[0]
 
     train_set, val_set = get_train_datasets(cfg)
     # drop_last on both: every batch has the configured size
@@ -195,30 +238,50 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     logger.info("Model built: %d parameters (pipeline=%s)",
                 sum(p.numel() for p in model.parameters()), cfg.pipeline)
 
-    saver = CheckPointManager(os.path.join(log_path, "ckpt"), keep_checkpoint_every_n_hours=1.0)
+    saver = None
+    if rank == 0:
+        saver = CheckPointManager(os.path.join(log_path, "ckpt"),
+                                  keep_checkpoint_every_n_hours=1.0)
     step = 0
     if cfg.train.resume:
         if cfg.train.load_model_all:
-            step = saver.load(cfg.train.resume, model, optimizer)
+            step = (saver.load if saver else load_train_state)(cfg.train.resume, model,
+                                                               optimizer)
         else:
             loaded = partial_restore(cfg.train.resume, model)
             logger.info("Partial restore: %d parameter arrays loaded", loaded)
 
+    step_fn, transfer = train_step, None
+    if cfg.train.data_parallel and world > 1:
+        # DP over the pair batch, one process per card (parallel/): state
+        # replicated, each process on its rows, the step the global batch's
+        mesh = make_mesh()
+        if cfg.train.batch_size % mesh.shape["data"]:
+            raise ValueError(f"batch_size {cfg.train.batch_size} not divisible by "
+                             f"{mesh.shape['data']} data-parallel processes")
+        logger.info("Data parallel over mesh %s", dict(mesh.shape))
+        replicate_state(mesh, model, optimizer)
+        step_fn = make_sharded_train_step(mesh)
+
+        def transfer(arrays):
+            return {k: to_device(v, device) for k, v in shard_batch(mesh, arrays).items()}
     val_step = make_validate_step(cfg, model)
     validate_every = cfg.train.validate_every
     if validate_every < 0:                       # negative: epochs
         validate_every = -validate_every * steps_per_epoch
 
+    # seeded alike on every process: the sharded step's dropout draws the
+    # global batch's mask and keeps its rows
     generator = torch.Generator(device).manual_seed(cfg.train.seed)
-    tracer = StepTracer()
+    tracer = StepTracer() if rank == 0 else StepTracer(num_steps=0)
     timer = Timer()
     skipped = 0
     for epoch in range(cfg.train.max_epochs):
         host_batches = (batch_arrays_only(b) for b in train_loader)
-        for arrays in device_prefetch(host_batches, device=device):
+        for arrays in device_prefetch(host_batches, transfer=transfer, device=device):
             timer.tic()
             with tracer.maybe_trace(step):
-                aux = train_step(model, optimizer, cfgs, arrays, generator, steps_per_epoch)
+                aux = step_fn(model, optimizer, cfgs, arrays, generator, steps_per_epoch)
                 loss = float(aux["loss"])
             timer.toc()
             step += 1
@@ -228,18 +291,22 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                 logger.info("epoch %d step %d | loss %.5f | %.2fs/step | lr %.2e | skipped %d",
                             epoch, step, loss, timer.avg,
                             lr_at(step, cfg.train, steps_per_epoch), skipped)
-            if step % cfg.train.summary_every == 0:
-                _summaries(writer, cfg, step, steps_per_epoch, aux, val_step, arrays)
+            if writer is not None and step % cfg.train.summary_every == 0:
+                # the train batch's mesh: one process only (train.py:256)
+                _summaries(writer, cfg, step, steps_per_epoch, aux, val_step, arrays,
+                           mesh_summaries=world == 1)
             if validate_every > 0 and step % validate_every == 0:
                 score = validate(cfg, model, val_loader, logger, val_step, writer=writer,
                                  step=step)
-                writer.add_scalar("val_score", score, step)
-                saver.save(model, optimizer, step, score=score)
+                if saver is not None:
+                    writer.add_scalar("val_score", score, step)
+                    saver.save(model, optimizer, step, score=score)
         logger.info("Epoch %d done (step %d)", epoch, step)
 
     # the final checkpoint; the best when no validation ran, so that the
     # run's ckpt directory always resolves to model_best.msgpack
-    saver.save(model, optimizer, step, score=0.0 if saver.best_step is None else -np.inf)
+    if saver is not None:
+        saver.save(model, optimizer, step, score=0.0 if saver.best_step is None else -np.inf)
     logger.info("Training complete at step %d (%.4f s per step)", step, timer.avg)
     return log_path
 

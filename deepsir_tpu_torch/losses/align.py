@@ -6,6 +6,11 @@ The BCE labels a predicted pair (i, pred_idx[i]) correct when
 points are given; otherwise by membership in padded ground-truth match
 lists, hashed to int32 keys src + ref * N and located by a per-row
 `searchsorted`.
+
+Over a data-parallel `group` (the batch split across processes) each mean
+over the pairs becomes this rank's share of the global batch's mean: its
+rows' sum over the global pair count. The shares sum to the single-device
+loss. The per-point means stay within each pair.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import torch
 from deepsir_tpu_torch.config import LossConfig
 from deepsir_tpu_torch.math import se3
 from deepsir_tpu_torch.ops.gather import gather_points
+from deepsir_tpu_torch.utils.collectives import ProcessGroup, share_mean
 
 
 def correspondence_correct(pred_idx: torch.Tensor, gt_matches: torch.Tensor,
@@ -42,7 +48,8 @@ def scan_alignment_loss(transforms: torch.Tensor, inlier_logits: torch.Tensor,
                         transform_gt: torch.Tensor, gt_matches: Optional[torch.Tensor],
                         cfg: LossConfig, reduction: str = "mean",
                         pt_ref: Optional[torch.Tensor] = None,
-                        mask_src: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                        mask_src: Optional[torch.Tensor] = None,
+                        group: ProcessGroup = None) -> Dict[str, torch.Tensor]:
     """Loss terms over the registration iterations and their discounted total.
 
     transforms (iters, B, 3, 4) cumulative; inlier_logits, pred_idx
@@ -54,16 +61,19 @@ def scan_alignment_loss(transforms: torch.Tensor, inlier_logits: torch.Tensor,
     Keys: f"{loss_type}_{i}", f"outlier_{i}", f"poseError_{i}" as their
     weights enable them, and "total", where iteration i is weighted by
     loss_discount_factor ** (iters - i - 1). reduction="none" keeps every
-    entry per sample (B,).
+    entry per sample (B,). `group`: the data-parallel group under
+    reduction="mean" (module docstring).
     """
     if reduction not in ("mean", "none"):
         raise ValueError(f"reduction={reduction!r}")
+    if group is not None and reduction != "mean":
+        raise ValueError("a data-parallel group needs reduction='mean'")
     num_iter = transforms.shape[0]
     num_points = pt_src.shape[-2]
     out: Dict[str, torch.Tensor] = {}
 
     def red(per_sample):
-        return per_sample.mean() if reduction == "mean" else per_sample
+        return share_mean(per_sample, group) if reduction == "mean" else per_sample
 
     def point_mean(x):                                       # (B, N[, 3]) -> (B,)
         dims = tuple(range(1, x.dim()))

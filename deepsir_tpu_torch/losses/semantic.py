@@ -5,6 +5,12 @@ ignored points' weights zeroed (the shapes stay static); the confusion
 matrix is an integer scatter-add on the device, accumulated across batches
 by `SemanticMetric` on the host.
 
+Over a data-parallel `group` (the batch split across processes) the loss
+is this rank's share of the global weighted mean, sum(nll * w) over its rows
+divided by the global sum(w): ignored labels make w differ from pair to
+pair, so a mean of the ranks' means would be another function. The shares
+sum to the single-device loss; the accuracy is the global one.
+
 Label convention: raw labels are SemanticKITTI learning-map ids 0..19, 0
 'unlabeled' (ignored); the logits have 19 classes, for ids 1..19.
 """
@@ -14,6 +20,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from deepsir_tpu_torch.utils.collectives import ProcessGroup, global_sum
 
 NUM_CLASSES = 19
 
@@ -38,20 +46,22 @@ def _target(labels: torch.Tensor):
     return labels > 0, torch.clamp(labels - 1, 0, NUM_CLASSES - 1)
 
 
-def semantic_loss(logits: torch.Tensor, labels: torch.Tensor
+def semantic_loss(logits: torch.Tensor, labels: torch.Tensor, group: ProcessGroup = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weighted CE over the valid points, and the accuracy (a fraction).
 
     logits (..., N, 19), labels (..., N) raw ids in 0..19 (0 ignored) ->
-    (scalar loss, scalar accuracy).
+    (scalar loss, scalar accuracy); with a `group`, this rank's share of
+    the loss and the global accuracy (module docstring).
     """
     valid, target = _target(labels)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, target[..., None])[..., 0]
     weights = torch.as_tensor(CLASS_WEIGHTS, device=logits.device)[target] * valid
-    loss = torch.sum(nll * weights) / (torch.sum(weights) + 1e-12)
+    loss = torch.sum(nll * weights) / (global_sum(torch.sum(weights), group) + 1e-12)
     correct = (torch.argmax(logits, dim=-1) == target) & valid
-    acc = torch.sum(correct) / (torch.sum(valid) + 1e-12)
+    counts = global_sum(torch.stack([torch.sum(correct), torch.sum(valid)]), group)
+    acc = counts[0] / (counts[1] + 1e-12)
     return loss, acc
 
 

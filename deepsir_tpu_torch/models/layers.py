@@ -7,7 +7,10 @@ group, over every other axis and the channels of the group, eps 1e-5, with
 stateless batch norm (deepsir_tpu/models/layers.py:66-76): per-channel
 mean and biased variance over every non-channel axis of the call, eps 1e-5,
 then a per-channel `scale` and `bias` held by the unit itself; no running
-statistics, in training and inference alike. `norm="none"` drops the norm
+statistics, in training and inference alike. When the batch is split over
+the ranks of a data-parallel `group`, the statistics are the global batch's
+(sums all-reduced, gradient included), as XLA computes them on a sharded
+batch. `norm="none"` drops the norm
 (and its parameters), the layout of the FC stacks under `fc_norm="none"`.
 
 Mixed precision (deepsir_tpu/models/layers.py:25-27): a unit built with
@@ -25,6 +28,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from deepsir_tpu_torch.utils.collectives import ProcessGroup, global_sum_grad, group_size
 
 LEAKY_SLOPE = 0.2
 
@@ -71,11 +76,17 @@ class GroupNorm(nn.Module):
 
 
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
+               eps: float = 1e-5, group: ProcessGroup = None) -> torch.Tensor:
     """Stateless batch norm of x (..., C): statistics per channel over every
-    other axis of this call."""
+    other axis of this call, and over every rank of `group` (two passes:
+    the mean, then the mean squared deviation from it)."""
     axes = tuple(range(x.dim() - 1))
-    var, mean = torch.var_mean(x, dim=axes, unbiased=False, keepdim=True)
+    if group is None:
+        var, mean = torch.var_mean(x, dim=axes, unbiased=False, keepdim=True)
+    else:
+        count = x[..., 0].numel() * group_size(group)
+        mean = global_sum_grad(x.sum(dim=axes, keepdim=True), group) / count
+        var = global_sum_grad(((x - mean) ** 2).sum(dim=axes, keepdim=True), group) / count
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
@@ -102,12 +113,13 @@ class ConvUnit(nn.Module):
         self.use_act = use_act
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group: ProcessGroup = None) -> torch.Tensor:
+        """`group`: the data-parallel group whose batch a batch norm spans."""
         x = dense(self.dense, x, self.dtype).float()    # the norm runs in fp32
         if self.norm is not None:
             x = self.norm(x)
         elif self.scale is not None:
-            x = batch_norm(x, self.scale, self.bias)
+            x = batch_norm(x, self.scale, self.bias, group=group)
         if self.use_act:
             x = leaky_relu(x)
         return x
@@ -127,9 +139,9 @@ class MLP(nn.Module):
             c_in = ch
         self.units = nn.ModuleList(units)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group: ProcessGroup = None) -> torch.Tensor:
         for unit in self.units:
-            x = unit(x)
+            x = unit(x, group)
         return x
 
 

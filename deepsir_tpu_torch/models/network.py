@@ -27,6 +27,20 @@ included), the Kabsch solves and the composed poses. The backbone, the
 scores, the descriptors, the searches and the inlier net's input channels
 are computed without a graph.
 
+The correspondence search hook (deepsir_tpu/models/network.py:109-113,
+349-371): `Network.matcher`, None by default, is a parameter-free callable
+(feat_src (B, N, C), feat_ref (B, M, C)) -> (B, N) int64. When it is set
+the loop searches with it, and where the reverse match is needed calls it
+again with the clouds swapped instead of running K3; the multi-device path
+sets the ring-sharded matcher here (parallel/matching.py). The state dict
+does not change.
+
+Data parallelism: each forward takes `group`, the process group of the
+data axis when the batch is split across processes (None on one device,
+which changes nothing). It reaches the batch norm of the FC stacks under
+`fc_norm="batch"` and the dropout's draw (models/randla.py), the only
+places where the forward mixes the pairs of a batch.
+
 Precision (deepsir_tpu/models/network.py:129-151,347-366): the backbone
 and the aggregation MLPs run their Dense layers in `compute_dtype`, the
 inlier RandLA in `inlier_compute_dtype` (and never on point-pair
@@ -37,7 +51,7 @@ poses are fp32.
 from __future__ import annotations
 
 from contextlib import nullcontext
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -54,6 +68,7 @@ from deepsir_tpu_torch.ops.gather import gather_points
 from deepsir_tpu_torch.ops.pyramid import (Pyramid, build_cloud_pyramid, concat_pyramids,
                                            slice_neighbours)
 from deepsir_tpu_torch.ops.svd3 import weighted_kabsch
+from deepsir_tpu_torch.utils.collectives import ProcessGroup
 
 
 class PairBatch(NamedTuple):
@@ -133,6 +148,8 @@ class Network(nn.Module):
             raise ValueError(f"pipeline {pipeline!r} is not one of {PIPELINES}")
         self.cfg = cfg
         self.pipeline = pipeline
+        # the correspondence search override (module docstring); parameter-free
+        self.matcher: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None
         c = cfg.out_feat_dim
         self.feat_extractor = RandLA(cfg, cfg.num_classes, cfg.feat_len)
         # [src xyz ; matched ref xyz] plus one channel per extra feature
@@ -153,17 +170,18 @@ class Network(nn.Module):
                         use_ppf=False, compute_dtype=cfg.inlier_compute_dtype),
                 1, 6 + len(self.extras))
 
-    def aggregate_side(self, xyz, feat, score):
+    def aggregate_side(self, xyz, feat, score, group: ProcessGroup = None):
         """One cloud's L2-normalised descriptor: proj(mlp_feat(f) + mlp_att([xyz; s]))."""
-        return self.aggregate_moving(xyz, score, self.mlp_feat(feat))
+        return self.aggregate_moving(xyz, score, self.mlp_feat(feat, group), group)
 
-    def aggregate_moving(self, xyz, score, ff):
+    def aggregate_moving(self, xyz, score, ff, group: ProcessGroup = None):
         """Descriptor from a precomputed `ff = mlp_feat(feat)` at the pose of xyz."""
-        g = self.mlp_att(torch.cat([xyz, score[..., None]], dim=-1))
-        return l2_normalize(self.mlp_proj(ff + g))
+        g = self.mlp_att(torch.cat([xyz, score[..., None]], dim=-1), group)
+        return l2_normalize(self.mlp_proj(ff + g, group))
 
     def backbone_pair(self, batch: PairBatch, train: bool = False,
-                      generator: Optional[torch.Generator] = None):
+                      generator: Optional[torch.Generator] = None,
+                      group: ProcessGroup = None):
         """One backbone pass over src and ref stacked along the batch dim, on
         the first `backbone_num_knn` neighbours when that is > 0. In
         training the dropout before `fc_label` draws from `generator`."""
@@ -171,7 +189,8 @@ class Network(nn.Module):
         pts = torch.cat([batch.points_src, batch.points_ref], dim=0)
         pyr = slice_neighbours(concat_pyramids(batch.pyramid_src, batch.pyramid_ref),
                                self.cfg.backbone_num_knn)
-        feat, logits = self.feat_extractor(pts, pyr, train=train, generator=generator)
+        feat, logits = self.feat_extractor(pts, pyr, train=train, generator=generator,
+                                           group=group, stacked=2)
         return feat[:b], logits[:b], feat[b:], logits[b:]
 
     def score_pair(self, batch: PairBatch, feat_src, feat_ref, logits_src, logits_ref):
@@ -188,7 +207,8 @@ class Network(nn.Module):
         return score[:b], score[b:]
 
     def forward_pair(self, batch: PairBatch, train: bool = False,
-                     generator: Optional[torch.Generator] = None) -> PairOutput:
+                     generator: Optional[torch.Generator] = None,
+                     group: ProcessGroup = None) -> PairOutput:
         """Features of both clouds, with keypoint scores for feat and align.
         Under feat the descriptors are the
         aggregated ones, cut to the `num_sub` best-scored points when
@@ -200,7 +220,7 @@ class Network(nn.Module):
         cfg = self.cfg
         with torch.no_grad() if self.pipeline == "feat" else nullcontext():
             feat_src, logits_src, feat_ref, logits_ref = self.backbone_pair(
-                batch, train, generator)
+                batch, train, generator, group)
         xyz_src = batch.points_src[..., :3]
         xyz_ref = batch.points_ref[..., :3]
         score_src = score_ref = None
@@ -208,8 +228,8 @@ class Network(nn.Module):
             score_src, score_ref = self.score_pair(batch, feat_src, feat_ref,
                                                    logits_src, logits_ref)
             if self.pipeline == "feat":
-                feat_src = self.aggregate_side(xyz_src, feat_src, score_src)
-                feat_ref = self.aggregate_side(xyz_ref, feat_ref, score_ref)
+                feat_src = self.aggregate_side(xyz_src, feat_src, score_src, group)
+                feat_ref = self.aggregate_side(xyz_ref, feat_ref, score_ref, group)
                 if cfg.num_sub > 0:
                     score_src, xyz_src, feat_src = top_k_select(score_src, cfg.num_sub,
                                                                 xyz_src, feat_src)
@@ -225,7 +245,8 @@ class Network(nn.Module):
         return _Source(xyz0, score, ff, pyr, self.inlier_model.pos_cache(pyr), mask)
 
     def forward_align(self, batch: PairBatch, opts: ForwardOptions, train: bool = False,
-                      generator: Optional[torch.Generator] = None) -> AlignOutput:
+                      generator: Optional[torch.Generator] = None,
+                      group: ProcessGroup = None) -> AlignOutput:
         """Iterative registration.
 
         With train=False (inference) nothing keeps a graph. With train=True
@@ -236,11 +257,12 @@ class Network(nn.Module):
         """
         if not train:
             with torch.no_grad():
-                return self._forward_align(batch, opts, False, None)
-        return self._forward_align(batch, opts, True, generator)
+                return self._forward_align(batch, opts, False, None, group)
+        return self._forward_align(batch, opts, True, generator, group)
 
     def _forward_align(self, batch: PairBatch, opts: ForwardOptions, train: bool,
-                       generator: Optional[torch.Generator]) -> AlignOutput:
+                       generator: Optional[torch.Generator],
+                       group: ProcessGroup) -> AlignOutput:
         cfg = self.cfg
         stride = 1 if train else opts.refine_stride
         refine = stride > 1 and opts.num_iter > 1
@@ -255,13 +277,14 @@ class Network(nn.Module):
         xyz_ref = batch.points_ref[..., :3].contiguous()
         with torch.no_grad():
             # frozen in align training: backbone, scores and descriptors
-            feat_src0, logits_src, feat_ref0, logits_ref = self.backbone_pair(batch)
+            feat_src0, logits_src, feat_ref0, logits_ref = self.backbone_pair(
+                batch, group=group)
             score_src, score_ref = self.score_pair(batch, feat_src0, feat_ref0,
                                                    logits_src, logits_ref)
             # loop-invariant: the ref descriptor and mlp_feat of the source
             # features; the inlier LocSE cache (below) keeps its graph
-            fr = self.aggregate_side(xyz_ref, feat_ref0, score_ref)
-            ff_src = self.mlp_feat(feat_src0)
+            fr = self.aggregate_side(xyz_ref, feat_ref0, score_ref, group)
+            ff_src = self.mlp_feat(feat_src0, group)
         full = self._source(xyz_src0, score_src, ff_src, batch.pyramid_src, batch.mask_src)
 
         b = xyz_src0.shape[0]
@@ -269,7 +292,7 @@ class Network(nn.Module):
         invalid = torch.zeros(b, dtype=torch.bool, device=xyz_src0.device)
         _, cum, invalid, transforms, logits, idx = self._iterate(
             full, fr, xyz_ref, xyz_src0, cum, invalid,
-            1 if refine else opts.num_iter, opts.clip_weight, train, generator)
+            1 if refine else opts.num_iter, opts.clip_weight, train, generator, group)
         src = full
         if refine:
             # iteration 1 ran on every point; the rest run on the strided
@@ -282,7 +305,7 @@ class Network(nn.Module):
                                None if mask is None else mask[:, ::stride])
             _, cum, invalid, t_rest, logits, idx = self._iterate(
                 src, fr, xyz_ref, se3.transform(cum, xyz0_sub), cum, invalid,
-                opts.num_iter - 1, opts.clip_weight)
+                opts.num_iter - 1, opts.clip_weight, group=group)
             transforms = transforms + t_rest
         return AlignOutput(
             transforms=torch.stack(transforms), inlier_logits=torch.stack(logits),
@@ -291,7 +314,7 @@ class Network(nn.Module):
 
     def _iterate(self, src: _Source, fr, xyz_ref, xyz_src, cum, invalid, num_iter: int,
                  clip_weight: bool, train: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, group: ProcessGroup = None):
         """`num_iter` registration iterations over `src` from the pose
         (xyz_src, cum); returns the last (xyz_src, cum, invalid) and the
         per-iteration cumulative transforms, inlier logits and matches."""
@@ -301,9 +324,14 @@ class Network(nn.Module):
         for _ in range(num_iter):
             with torch.no_grad():
                 # the inlier net's inputs carry no gradient
-                fs = self.aggregate_moving(xyz_src, src.score, src.ff)
+                fs = self.aggregate_moving(xyz_src, src.score, src.ff, group)
                 lp = self.low_precision
-                if need_ridx:
+                if self.matcher is not None:
+                    # the reverse call shards the source cloud: the matcher
+                    # is argument-generic
+                    idx = self.matcher(fs, fr)                               # (B, N)
+                    ridx = self.matcher(fr, fs) if need_ridx else None       # (B, M)
+                elif need_ridx:
                     idx, ridx = nearest_neighbour_bidirectional(fs, fr, lp)  # (B, N), (B, M)
                 else:
                     idx = nearest_neighbour_index(fs, fr, lp)                # (B, N)
@@ -321,7 +349,7 @@ class Network(nn.Module):
                         gather_points(back, idx) - src.xyz0, dim=-1, keepdim=True))
                 pair_feats = torch.cat(feats, dim=-1)
             _, logit = self.inlier_model(pair_feats, src.pyramid, pos_cache=src.pos,
-                                         train=train, generator=generator)
+                                         train=train, generator=generator, group=group)
             logit = logit[..., 0]
             weights = torch.sigmoid(logit)
             if clip_weight and cfg.clip_weight_thresh > 0:

@@ -10,7 +10,10 @@ network over the same pyramid repeatedly (the registration loop) computes it
 once. In training (`train=True`) dropout at `cfg.dropout_rate` acts on the
 output features before `fc_label`, as flax's `nn.Dropout` does: a kept
 entry is scaled by 1 / keep, the keep mask drawn from the caller's
-`torch.Generator`.
+`torch.Generator`. Over a data-parallel `group` every rank draws the mask
+of the global batch from a generator seeded alike and keeps its own rows,
+so that the ranks together draw what one device draws for the whole batch;
+the `fc_label` stack's batch norm then spans the group's batch too.
 
 `cfg.compute_dtype` sets the Dense layers' dtype (models/layers.py); the
 features and logits it returns are fp32. Under `cfg.use_ppf` the input
@@ -31,6 +34,7 @@ from deepsir_tpu_torch.models.layers import (MLP, AttPooling, ConvUnit, compute_
 from deepsir_tpu_torch.ops.gather import (gather_neighbour, max_pool_neighbours,
                                           nearest_interpolate)
 from deepsir_tpu_torch.ops.pyramid import Pyramid
+from deepsir_tpu_torch.utils.collectives import ProcessGroup, group_rank, group_size
 
 PosEnc = Tuple[torch.Tensor, torch.Tensor]
 
@@ -151,20 +155,32 @@ class RandLA(nn.Module):
         return tuple(enc.pos_encode(pyr.xyz[i], pyr.neigh_idx[i])
                      for i, enc in enumerate(self.enc))
 
-    def dropout(self, feat: torch.Tensor, generator: Optional[torch.Generator]):
+    def dropout(self, feat: torch.Tensor, generator: Optional[torch.Generator],
+                group: ProcessGroup = None, stacked: int = 1):
         """flax `nn.Dropout` in training: each entry kept with probability
         1 - rate and then scaled by 1 / (1 - rate), else zeroed; the keep
-        mask, of feat's shape, comes from `generator` (on feat's device)."""
+        mask, of feat's shape, comes from `generator` (on feat's device).
+        With a data-parallel `group` the draw is the global batch's, of
+        which this rank keeps its rows: feat's batch is `stacked` blocks of
+        rows (the backbone's [src; ref]), each block this rank's slice of
+        the global block."""
         if self.dropout_rate == 0.0:
             return feat
         keep = 1.0 - self.dropout_rate
-        draw = torch.rand(feat.shape, generator=generator, device=feat.device,
-                          dtype=feat.dtype)
+        rows = feat.shape[0] // stacked
+        rank = group_rank(group)
+        full = torch.rand((stacked, rows * group_size(group)) + feat.shape[1:],
+                          generator=generator, device=feat.device, dtype=feat.dtype)
+        draw = full[:, rank * rows:(rank + 1) * rows].reshape(feat.shape)
         return torch.where(draw < keep, feat / keep, torch.zeros_like(feat))
 
     def forward(self, features: torch.Tensor, pyr: Pyramid,
                 pos_cache: Optional[Tuple[PosEnc, ...]] = None, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, group: ProcessGroup = None,
+                stacked: int = 1):
+        """`group`: the data-parallel group that holds the rest of the batch
+        (the dropout's draw, `fc_label`'s batch norm); `stacked`: the blocks
+        of rows of `features` (`dropout`)."""
         if self.use_ppf:
             grouped = ppf_grouping(features[..., :3], features[..., 3:6], pyr.neigh_idx[0])
             x = torch.mean(self.mlp_pre(grouped), dim=-2)       # (B, N, 12)
@@ -186,4 +202,6 @@ class RandLA(nn.Module):
             up = nearest_interpolate(x, pyr.interp_idx[lvl])
             x = dec(torch.cat([skips[lvl], up], dim=-1))
         feat = dense(self.mlp_out, x, self.dtype).float()
-        return feat, self.fc_label(self.dropout(feat, generator) if train else feat)
+        if train:
+            return feat, self.fc_label(self.dropout(feat, generator, group, stacked), group)
+        return feat, self.fc_label(feat, group)

@@ -12,6 +12,15 @@ at the staircase-decayed learning rate. A non-finite loss or gradient, or
 an invalid pose solve, skips the whole update: parameters, moments and
 count stay as they were, and so does the learning rate, which follows the
 count of applied updates.
+
+Data parallelism (parallel/sharded.py drives it): given a `mesh`, each
+process holds its rows of the global batch and an identical copy of the
+state. Its loss is its share of the global loss (the losses' `group`), the
+forward's batch norm and dropout span the data axis, the grads are summed
+over the data axis (and the model axis's first rank's copy broadcast over
+the model axis, so that replicas stay bit-equal), and the skip guard's flag
+is all-reduced (MIN) over the mesh before its one host read: the step is
+the single-device step on the global batch.
 """
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from deepsir_tpu_torch.config import LossConfig, ModelConfig, RunConfig, TrainConfig, \
     check_supported
@@ -27,6 +37,7 @@ from deepsir_tpu_torch.losses.detdes import det_des_loss
 from deepsir_tpu_torch.losses.semantic import semantic_loss
 from deepsir_tpu_torch.models.network import ForwardOptions, Network, PairBatch, PairOutput
 from deepsir_tpu_torch.ops.pyramid import build_cloud_pyramid
+from deepsir_tpu_torch.utils.collectives import ProcessGroup, global_sum
 from deepsir_tpu_torch.utils.params import trainable_parameters
 
 _KEYS = ("points_src", "points_ref", "transform_gt")
@@ -111,7 +122,7 @@ def adam_count(optimizer: torch.optim.Optimizer) -> int:
 
 
 def compute_loss(model: Network, loss_cfg: LossConfig, batch: PairBatch,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, group: ProcessGroup = None):
     """The loss of one training forward of `model.pipeline`
     (deepsir_tpu/training.py:compute_loss): (total, aux).
 
@@ -121,28 +132,30 @@ def compute_loss(model: Network, loss_cfg: LossConfig, batch: PairBatch,
     alignment loss; aux {"loss", "invalid", "losses", "pred_idx"}, its BCE
     labels from the match lists when the batch carries them, else from the
     geometric test. `invalid` is a device boolean (always false but for
-    align's pose solves)."""
+    align's pose solves). With a data-parallel `group` the loss and its
+    terms are this rank's shares of the global batch's (the accuracy is
+    global already), and `invalid` and `pred_idx` are this rank's."""
     if model.pipeline != "align":
-        out = model.forward_pair(batch, train=True, generator=generator)
+        out = model.forward_pair(batch, train=True, generator=generator, group=group)
         invalid = torch.zeros((), dtype=torch.bool, device=batch.points_src.device)
         if model.pipeline == "feat":
             loss, acc = det_des_loss(out.feat_src, out.feat_ref, out.xyz_src, out.xyz_ref,
                                      out.score_src, out.score_ref, batch.transform_gt,
-                                     loss_cfg)
+                                     loss_cfg, group)
         else:
             if batch.labels_src is None or batch.labels_ref is None:
                 raise ValueError("the label loss needs labels_src and labels_ref")
-            loss_s, acc_s = semantic_loss(out.logits_src, batch.labels_src)
-            loss_r, acc_r = semantic_loss(out.logits_ref, batch.labels_ref)
+            loss_s, acc_s = semantic_loss(out.logits_src, batch.labels_src, group)
+            loss_r, acc_r = semantic_loss(out.logits_ref, batch.labels_ref, group)
             loss, acc = loss_s + loss_r, (acc_s + acc_r) / 2
         return loss, {"loss": loss, "acc": acc, "invalid": invalid}
     opts = ForwardOptions(num_iter=model.cfg.num_train_reg_iter)
-    out = model.forward_align(batch, opts, train=True, generator=generator)
+    out = model.forward_align(batch, opts, train=True, generator=generator, group=group)
     use_lists = batch.matches is not None
     terms = scan_alignment_loss(out.transforms, out.inlier_logits, out.pred_idx, out.pt_src,
                                 batch.transform_gt, batch.matches, loss_cfg,
                                 pt_ref=None if use_lists else out.pt_ref,
-                                mask_src=batch.mask_src)
+                                mask_src=batch.mask_src, group=group)
     total = terms.pop("total")
     return total, {"loss": total, "invalid": out.invalid.any(), "losses": terms,
                    "pred_idx": out.pred_idx}
@@ -150,9 +163,16 @@ def compute_loss(model: Network, loss_cfg: LossConfig, batch: PairBatch,
 
 def train_step(model: Network, optimizer: torch.optim.Optimizer, cfgs: RunConfig,
                arrays: Dict[str, np.ndarray], generator: Optional[torch.Generator],
-               steps_per_epoch: int) -> Dict:
+               steps_per_epoch: int, mesh=None) -> Dict:
     """One training step of `model.pipeline` (which must be
     `cfgs.pipeline`) on the device of `model`'s parameters.
+
+    `mesh` (a parallel.mesh.Mesh; None on one device): `arrays` are this
+    rank's rows of the global batch, and the step is the global batch's
+    (module docstring); the returned loss, terms, accuracy, `invalid`,
+    grads and `skipped` are global, `pred_idx` this rank's rows. Dropout
+    draws from `generator` as one device would for the global batch, so
+    every rank seeds it alike.
 
     Returns compute_loss's aux with its tensors detached ("losses" and
     "pred_idx" under align, "acc" under label and feat), and "loss",
@@ -166,13 +186,22 @@ def train_step(model: Network, optimizer: torch.optim.Optimizer, cfgs: RunConfig
     device = next(model.parameters()).device
     batch = device_batch(cfgs.model, arrays, device=device)
     optimizer.zero_grad(set_to_none=True)
-    loss, aux = compute_loss(model, cfgs.loss, batch, generator)
+    loss, aux = compute_loss(model, cfgs.loss, batch, generator,
+                             None if mesh is None else mesh.data_group)
     loss.backward()
     named = trainable_parameters(model)
+    if mesh is not None:
+        _reduce_grads([p.grad for _, p in named if p.grad is not None], mesh)
+        aux = _global_aux(aux, mesh.data_group)
+        loss = aux["loss"]
     ok = torch.isfinite(loss.detach()) & ~aux["invalid"]
     for _, p in named:
         if p.grad is not None:
             ok = ok & torch.isfinite(p.grad).all()
+    if mesh is not None:
+        # one rank's non-finite grad or failed solve skips the step everywhere
+        ok = ok.to(torch.int32)
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=mesh.group)
     applied = bool(ok)                                  # the step's one host read
     lr = lr_at(adam_count(optimizer), cfgs.train, steps_per_epoch)
     if applied:
@@ -183,6 +212,34 @@ def train_step(model: Network, optimizer: torch.optim.Optimizer, cfgs: RunConfig
     if "losses" in aux:
         out["losses"] = {k: v.detach() for k, v in aux["losses"].items()}
     return dict(out, grads={n: p.grad for n, p in named}, lr=lr, skipped=not applied)
+
+
+def _reduce_grads(grads, mesh) -> None:
+    """Sum `grads` over the mesh's data axis in one flat all-reduce, then
+    give every rank of the model axis its first rank's sums."""
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=mesh.data_group)
+    if len(mesh.model_ranks) > 1:
+        dist.broadcast(flat, src=mesh.model_ranks[0], group=mesh.model_group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def _global_aux(aux: Dict, group) -> Dict:
+    """compute_loss's aux with the loss, its terms and `invalid` of the
+    global batch: the shares summed over `group`, in one all-reduce."""
+    terms = aux.get("losses", {})
+    shares = torch.stack([aux["loss"].detach()] + [v.detach() for v in terms.values()]
+                         + [aux["invalid"].to(aux["loss"].dtype)])
+    total = global_sum(shares, group)
+    out = dict(aux, loss=total[0], invalid=total[-1] > 0)
+    if terms:
+        out["losses"] = dict(zip(terms, total[1:-1]))
+    return out
 
 
 @torch.no_grad()
@@ -196,19 +253,21 @@ def forward_step(model: Network, cfg: ModelConfig, arrays: Dict[str, np.ndarray]
 
 
 def make_eval_step(model: Network, cfg: ModelConfig, num_iter: Optional[int] = None,
-                   refine_stride: int = 1):
+                   refine_stride: int = 1, group: ProcessGroup = None):
     """The align eval step (deepsir_tpu/training.py:make_eval_step): arrays ->
     (transforms (iters, B, 3, 4), AlignOutput), as `device_batch` and
     `forward_align` with clip_weight on, `num_iter` iterations
     (cfg.num_reg_iter if None) and `refine_stride`, without a graph, on the
-    device of `model`'s parameters, which the step keeps as `.device`."""
+    device of `model`'s parameters, which the step keeps as `.device`.
+    `group`: the data-parallel group the forward's batch spans
+    (parallel/sharded.py::make_sharded_eval_step)."""
     opts = ForwardOptions(num_iter=num_iter or cfg.num_reg_iter, clip_weight=True,
                           refine_stride=refine_stride)
     device = next(model.parameters()).device
 
     @torch.no_grad()
     def eval_step(arrays):
-        out = model.forward_align(device_batch(cfg, arrays, device=device), opts)
+        out = model.forward_align(device_batch(cfg, arrays, device=device), opts, group=group)
         return out.transforms, out
 
     eval_step.device = device

@@ -30,8 +30,16 @@ PyTorch port against it where JAX is absent:
   counterparts, with the bf16 search through the `matcher` hook, and one
   align training step in bf16 and in fp32 (`precision`).
 
+- tests/data/torch_parity_parallel.npz: the JAX package's data-parallel
+  steps (deepsir_tpu/parallel/sharded.py) on the 8-device virtual CPU mesh
+  at 256 points, over exact pyramids (stored with it): the sharded train
+  step of the align, label (`fc_norm="batch"`, ignored labels) and feat
+  pipelines on a (4, 1) mesh, and the sharded align eval step on a (2, 2)
+  mesh, with and without the mutual gate (`parallel`; its JAX steps take
+  ~60-90 s each to compile).
+
 Run on the CPU with JAX installed:
-    python tests/data/make_torch_parity_fixture.py [small] [paths] [ckpt] [train] [stages] [eval] [cli] [precision]
+    python tests/data/make_torch_parity_fixture.py [small] [paths] [ckpt] [train] [stages] [eval] [cli] [precision] [parallel]
 
 Each file holds the model config (`model_json`), the flax params
 (`param/<path>`), the input arrays, both clouds' pyramid indices and the
@@ -920,13 +928,150 @@ def build_precision() -> Dict[str, np.ndarray]:
     return fixture
 
 
+OUT_PARALLEL = Path(__file__).with_name("torch_parity_parallel.npz")
+MODEL_PARALLEL = dict(feat_len=3, num_points=256, num_knn=8, sub_sampling_ratio=(4, 4),
+                      d_out=(8, 16), out_feat_dim=16, num_train_reg_iter=2, num_reg_iter=2,
+                      dropout_rate=0.0)
+TRAIN_PARALLEL = dict(lr=1e-3, lr_decay_epoch=1, lr_decay_ratio=0.5, lr_clip=3e-4)
+PARALLEL_PAIRS = 4
+PARALLEL_SEED = 3                 # init_params
+# case -> (pipeline, ModelConfig options)
+PARALLEL_TRAIN = {"align": ("align", {}), "label": ("label", dict(fc_norm="batch")),
+                  "feat": ("feat", {})}
+PARALLEL_EVAL = {"default": {}, "mutual": dict(mutual_check=True, mutual_check_tol=0.5)}
+# the share of each pair's labels set to 0 (ignored), so that the semantic
+# loss's weights differ from pair to pair
+PARALLEL_IGNORED = (0.1, 0.3, 0.5, 0.7)
+
+
+def parallel_arrays() -> Dict[str, np.ndarray]:
+    """PARALLEL_PAIRS synthetic training pairs at 256 points with their
+    labels, a share PARALLEL_IGNORED[b] of pair b's labels set to 0."""
+    from deepsir_tpu.config import Config, DataConfig, ModelConfig
+    from deepsir_tpu.data.base import Loader
+    from deepsir_tpu.data.synthetic import SyntheticPairs
+    from deepsir_tpu.training import batch_arrays_only
+    cfg = Config(pipeline="label", model=ModelConfig(**MODEL_PARALLEL),
+                 data=DataConfig(dataset_type="Synthetic")).resolved()
+    ds = SyntheticPairs(cfg, "train", size=PARALLEL_PAIRS)
+    batch = batch_arrays_only(next(iter(Loader(ds, batch_size=PARALLEL_PAIRS, shuffle=False,
+                                               num_workers=1))))
+    arrays = {k: batch[k] for k in ("points_src", "points_ref", "transform_gt",
+                                    "labels_src", "labels_ref")}
+    rng = np.random.default_rng(5)
+    for key in ("labels_src", "labels_ref"):
+        labels = arrays[key].copy()
+        for b, share in enumerate(PARALLEL_IGNORED):
+            labels[b][rng.random(labels.shape[1]) < share] = 0
+        arrays[key] = labels
+    return arrays
+
+
+def _exact_pyramid_arrays(arrays) -> Dict[str, np.ndarray]:
+    """Both clouds' exact_pyramid as `pyr_<side>_<field>_<level>` arrays
+    (batch-leading, so that a mesh shards them with the batch)."""
+    m = MODEL_PARALLEL
+    out = {}
+    for side in ("src", "ref"):
+        pyr = exact_pyramid(arrays[f"points_{side}"][..., :3], m["num_knn"],
+                            m["sub_sampling_ratio"])
+        for field, levels in pyr._asdict().items():
+            for lvl, a in enumerate(levels):
+                out[f"pyr_{side}_{field}_{lvl}"] = a
+    return out
+
+
+def _pyramid_batch(cfg, arrays):
+    """deepsir_tpu.training.device_batch over the pyramids in `arrays`
+    (`_exact_pyramid_arrays`): JAX's CPU KNN orders near ties by the norm
+    expansion, so the steps run on exact pyramids, as the other fixtures'
+    do."""
+    from deepsir_tpu.models.network import PairBatch
+    from deepsir_tpu.ops.pyramid import Pyramid
+    levels = len(cfg.model.d_out)
+
+    def pyramid(side):
+        return Pyramid(*(tuple(arrays[f"pyr_{side}_{f}_{lvl}"] for lvl in range(levels))
+                         for f in Pyramid._fields))
+    return PairBatch(points_src=arrays["points_src"], points_ref=arrays["points_ref"],
+                     pyramid_src=pyramid("src"), pyramid_ref=pyramid("ref"),
+                     transform_gt=arrays["transform_gt"],
+                     labels_src=arrays.get("labels_src"), labels_ref=arrays.get("labels_ref"))
+
+
+def _parallel_config(pipeline: str, **model):
+    from deepsir_tpu.config import Config, DataConfig, ModelConfig, TrainConfig
+    return Config(pipeline=pipeline, model=ModelConfig(**dict(MODEL_PARALLEL, **model)),
+                  data=DataConfig(dataset_type="Synthetic"),
+                  train=TrainConfig(**TRAIN_PARALLEL)).resolved()
+
+
+def build_parallel() -> Dict[str, np.ndarray]:
+    """The parallel fixture's arrays: the pairs and their exact pyramids
+    (`pyr_<side>_<field>_<level>`, which the JAX steps run on); per train
+    case `train/<case>/...` the loss, its terms or accuracy, `skipped` and
+    the trained parameters after the step, by the port's parameter names;
+    per eval case `eval/<case>/transforms` and `/pred_idx`."""
+    import jax
+    import jax.numpy as jnp
+    import deepsir_tpu.training as jt
+    from deepsir_tpu.models import Network
+    from deepsir_tpu.parallel import (make_mesh, make_sharded_eval_step,
+                                      make_sharded_train_step, shard_batch)
+    from deepsir_tpu_torch.config import ModelConfig as PortModelConfig
+    from deepsir_tpu_torch.models.network import Network as PortNetwork
+    from deepsir_tpu_torch.utils.params import (from_jax_params, init_params, to_jax_params,
+                                                trainable_parameters)
+    assert jax.device_count() >= 4, "run with XLA_FLAGS=--xla_force_host_platform_device_count=8"
+    arrays = parallel_arrays()
+    feed = dict(arrays, **_exact_pyramid_arrays(arrays))
+    fixture = dict(feed, thres_radius=np.asarray(_parallel_config("align").loss.thres_radius))
+    real = jt.device_batch
+    jt.device_batch = _pyramid_batch
+    try:
+        mesh = make_mesh(num_data=4, num_model=1, devices=jax.devices()[:4])
+        for case, (pipeline, options) in PARALLEL_TRAIN.items():
+            cfg = _parallel_config(pipeline, **options)
+            port = PortNetwork(PortModelConfig(**dict(MODEL_PARALLEL, **options)), pipeline)
+            params = to_jax_params(init_params(port.cfg, seed=PARALLEL_SEED, pipeline=pipeline))
+            model = Network(cfg.model, pipeline=pipeline)
+            tx = jt.make_optimizer(cfg, 1)
+            state = jt.TrainState(params, tx.init(params), jnp.zeros((), jnp.int32))
+            step = make_sharded_train_step(cfg, model, tx, mesh)
+            state, aux = jax.device_get(step(state, shard_batch(mesh, feed),
+                                             jax.random.PRNGKey(0)))
+            fixture[f"train/{case}/loss"] = np.asarray(aux["loss"])
+            fixture[f"train/{case}/skipped"] = np.asarray(aux["skipped"])
+            if "acc" in aux:
+                fixture[f"train/{case}/acc"] = np.asarray(aux["acc"])
+            for key, value in aux.get("losses", {}).items():
+                fixture[f"train/{case}/losses/{key}"] = np.asarray(value)
+            after = from_jax_params(jax.tree_util.tree_map(np.asarray, state.params), port)
+            for name, _ in trainable_parameters(port):
+                fixture[f"train/{case}/param/{name}"] = after[name].numpy()
+        mesh = make_mesh(num_data=2, num_model=2, devices=jax.devices()[:4])
+        for case, options in PARALLEL_EVAL.items():
+            cfg = _parallel_config("align", **options)
+            params = to_jax_params(init_params(PortModelConfig(**dict(MODEL_PARALLEL, **options)),
+                                               seed=PARALLEL_SEED))
+            step = make_sharded_eval_step(cfg, Network(cfg.model, pipeline="align"), mesh,
+                                          num_iter=MODEL_PARALLEL["num_reg_iter"])
+            transforms, out = jax.device_get(step(params, shard_batch(mesh, feed)))
+            fixture[f"eval/{case}/transforms"] = np.asarray(transforms)
+            fixture[f"eval/{case}/pred_idx"] = np.asarray(out.pred_idx)
+    finally:
+        jt.device_batch = real
+    return fixture
+
+
 def main(names=("small", "paths", "ckpt", "train", "stages", "eval", "cli")) -> None:
     import jax
     jax.config.update("jax_platforms", "cpu")
     makers = {"small": (OUT, build), "paths": (OUT_PATHS, build_paths),
               "ckpt": (OUT_CKPT, build_ckpt), "train": (OUT_TRAIN, build_train),
               "stages": (OUT_STAGES, build_stages), "eval": (OUT_EVAL, build_eval),
-              "cli": (OUT_CLI, build_cli), "precision": (OUT_PRECISION, build_precision)}
+              "cli": (OUT_CLI, build_cli), "precision": (OUT_PRECISION, build_precision),
+              "parallel": (OUT_PARALLEL, build_parallel)}
     for name in names:
         out, make = makers[name]
         np.savez_compressed(out, **make())
@@ -936,4 +1081,8 @@ def main(names=("small", "paths", "ckpt", "train", "stages", "eval", "cli")) -> 
 if __name__ == "__main__":
     import sys
     sys.path.insert(0, str(ROOT))
+    if "parallel" in sys.argv[1:]:
+        # the JAX mesh needs virtual devices, set before JAX starts
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                                   + " --xla_force_host_platform_device_count=8").strip()
     main(sys.argv[1:] or ("small", "paths", "ckpt", "train", "stages", "eval", "cli"))

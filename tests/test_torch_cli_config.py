@@ -122,7 +122,8 @@ def test_data_parallel_over_several_cards_raises(monkeypatch, tmp_path):
     from deepsir_tpu_torch.cli import train
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    with pytest.raises(RuntimeError, match="2 cards in one process: start one process per "
+                                           "card, each with DEEPSIR_COORDINATOR"):
         train.main(["--data_parallel", "true", "--logdir", str(tmp_path)])
 
 

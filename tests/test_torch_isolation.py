@@ -30,6 +30,8 @@ leaked = sorted(m for m in sys.modules
                 and sys.modules[m] is not None)
 print(len(names), leaked)
 assert not leaked, leaked
+import torch.distributed as dist
+assert not dist.is_initialized(), "importing the port started a process group"
 """
 
 

@@ -280,8 +280,8 @@ def test_dropout_mask_comes_from_the_generator(pipeline):
     calls = []
     real = RandLA.dropout
 
-    def spy(self, feat, generator):
-        out = real(self, feat, generator)
+    def spy(self, feat, generator, *rest):
+        out = real(self, feat, generator, *rest)
         calls.append((tuple(feat.shape), out == 0))
         return out
     with mock.patch.object(RandLA, "dropout", spy):

@@ -302,8 +302,8 @@ def test_dropout_draws_a_fresh_mask_each_iteration_in_the_inlier_net_only():
     calls = []
     real = RandLA.dropout
 
-    def spy(self, feat, generator):
-        out = real(self, feat, generator)
+    def spy(self, feat, generator, *rest):
+        out = real(self, feat, generator, *rest)
         calls.append((self is model.inlier_model, tuple(feat.shape), out == 0))
         return out
     from deepsir_tpu_torch.models.network import ForwardOptions
