@@ -87,7 +87,13 @@ replicated) against `train_step`, and through `make_sharded_eval_step`
 (B=1, default and F+gate) against `make_eval_step`, each timed in turns;
 and the ring search's arithmetic over 2 and 4 slices of 18000 x 18000 x 64
 descriptors, each rank's walk with `_local_min` (K2) and `_merge` in one
-process, against K2 over the whole reference, also on tiled duplicates.
+process, against K2 over the whole reference, also on tiled duplicates;
+and the JAX package's opt-in utilities ("utilities" phase) on one seeded
+18000-point pair: `ransac_feature_matching` over the feat pipeline's
+descriptors (K2) and `radius_matches` (K1 at k = 32, timed beside its
+yardstick) against the plain kernels, and the voxel grid, Morton codes,
+PointNet++ grouping, Sinkhorn with `weighted_kabsch_soft` and the chamfer
+losses on the card against the CPU.
 Imports neither JAX nor the JAX package.
 
 Output: one line per phase with its wall time; then a JSON line
@@ -96,9 +102,9 @@ Output: one line per phase with its wall time; then a JSON line
 {"eval": {...}} (with the card's name and power limit), a JSON line
 {"cli": {...}}, a JSON line {"precision": {...}}, a JSON line
 {"parallel": {...}} (with the card's name and power limit), a JSON line
-{"kernels": [...]} (K2's and K3's launches by operand form under
-"forms"), the card's name and power
-limit as nvidia-smi reports them, and last {"ok": true, "device": {...}}.
+{"utilities": {...}} (with them too), a JSON line {"kernels": [...]}
+(K2's and K3's launches by operand form under "forms"), the card's name
+and power limit as nvidia-smi reports them, and last {"ok": true, "device": {...}}.
 Any failure raises: the exit code is not 0 and the last line is not
 printed. Needs one CUDA card.
 """
@@ -1006,8 +1012,11 @@ def checkpoint_arrays(fx, n: int):
 def plain_kernels():
     """Every kernel wrapper on the forward's path replaced by its plain
     PyTorch version, which runs on the card's tensors too."""
+    import importlib
     from unittest import mock
-    from deepsir_tpu_torch.ops import cuda_knn, cuda_match, distance, knn
+    from deepsir_tpu_torch.ops import cuda_knn, cuda_match, distance
+    # the module: the package exports the function `knn` under its name
+    knn = importlib.import_module("deepsir_tpu_torch.ops.knn")
     with mock.patch.object(knn, "knn_topk", cuda_knn.knn_topk_plain), \
             mock.patch.object(knn, "knn_topk_windowed", cuda_knn.knn_topk_windowed_plain), \
             mock.patch.object(distance, "match_argmin", cuda_match.match_argmin_plain), \
@@ -2798,7 +2807,11 @@ def cli_full_width(torch, dev, out_dir: Path):
 def cli_commands(dev, out_dir: Path) -> dict:
     """Each command once as a module (`python -m`) in a process of its own:
     the test command --dev (4 pairs, 1024 points, seeded weights) and the
-    label train command --dev for one step. Returns their wall seconds."""
+    label train command --dev for one step, each on as many torch threads as
+    this process (OMP_NUM_THREADS). Returns their wall seconds."""
+    import os
+    import torch
+    env = dict(os.environ, OMP_NUM_THREADS=str(torch.get_num_threads()))
     out = {}
     for name, argv in (
             ("test", ["--dev", "--pipeline", "align", "--dataset_type", "Synthetic",
@@ -2808,8 +2821,8 @@ def cli_commands(dev, out_dir: Path) -> dict:
                        "--synthetic_train_size", "8", "-v", "0"])):
         t0 = time.perf_counter()
         res = subprocess.run([sys.executable, "-m", f"deepsir_tpu_torch.cli.{name}",
-                              *_on(dev, argv)], cwd=ROOT, capture_output=True, text=True,
-                             timeout=600)
+                              *_on(dev, argv)], cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
         if res.returncode != 0:
             raise AssertionError(f"python -m deepsir_tpu_torch.cli.{name}: rc "
                                  f"{res.returncode}\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
@@ -3401,6 +3414,376 @@ def check_parallel(torch, dev, smi: str, n: int = N_POINTS, pairs: int = PARALLE
                    "ring": ring}
 
 
+UTIL_SEED = 11                    # the phase's synthetic pair (train_arrays)
+UTIL_HYPOTHESES = 4096            # feature-matching RANSAC's hypotheses
+UTIL_RANSAC_DIST = 0.6            # its inlier distance: 2 x the 0.3 voxel, EvalConfig's rule
+UTIL_RADIUS = TRAIN_THRES_RADIUS  # radius matches: the DataConfig default radius
+UTIL_K = 32                       # radius_matches' k_per_point: K1's largest k (cuda_knn.MAX_K)
+UTIL_CAPACITY = 30000
+UTIL_VOXEL = 0.3                  # the DataConfig default voxel
+UTIL_GROUPS = (1024, 2.0, 32)     # sample_and_group: centers, ball radius, neighbours
+UTIL_SOFT = 1024                  # Sinkhorn and weighted_kabsch_soft on (1, 1024, 1024)
+UTIL_WEIGHTED = 4096              # the score-weighted chamfer builds the full (M, N) matrix
+
+
+def _util_descriptors(torch, dev, arrays, n: int):
+    """The feat pipeline's descriptors of both clouds at bench.py's widths
+    (ModelConfig's defaults, feat_len 4) on seeded weights (K1 16 launches,
+    the pyramids)."""
+    from deepsir_tpu_torch.config import ModelConfig
+    from deepsir_tpu_torch.models.network import Network
+    from deepsir_tpu_torch.training import forward_step
+    from deepsir_tpu_torch.utils.params import init_params
+    cfg = ModelConfig(feat_len=FEAT_LEN, num_points=n)
+    model = Network(cfg, "feat")
+    model.load_state_dict(init_params(cfg, seed=0, pipeline="feat"))
+    model.to(dev).eval()
+    with torch.no_grad():
+        out = forward_step(model, cfg, arrays)
+    return out.feat_src[0].contiguous(), out.feat_ref[0].contiguous()
+
+
+def _util_counted(torch, dev, counted, what, fn, want):
+    """fn() with the counts set to 0 just before and read just after; its
+    launches must be `want` (K1, K4, K2, K3) on the card. Returns (result,
+    launches, host-clock ms of the call)."""
+    if counted is not None:
+        torch.cuda.synchronize()
+        reset_counts(counted)
+    result, ms = _timed_call(torch, dev, fn)
+    if counted is None:
+        return result, dict.fromkeys(COUNTED, 0), ms
+    launches, _ = read_counts(counted)
+    if launches != dict(zip(COUNTED, want)):
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+    return result, launches, ms
+
+
+def _timed_call(torch, dev, fn):
+    """(fn(), host-clock ms of the call, ending in a synchronize on the card)."""
+    t0 = time.perf_counter()
+    result = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return result, (time.perf_counter() - t0) * 1e3
+
+
+def util_ransac(torch, dev, src, ref, fs, fr, counted):
+    """`ransac_feature_matching` (K2 through nearest_neighbour_index, one
+    launch) with UTIL_HYPOTHESES hypotheses from a seeded generator,
+    against the same call with every kernel's plain version: K2's matches
+    equal but for near ties (`_search_near_ties`), and with the same draws
+    the transforms within 1e-5 and the inlier fractions equal wherever the
+    matches agree (over the agreeing pairs only, if any differ)."""
+    from deepsir_tpu_torch.ops.cuda_match import match_argmin, match_argmin_plain
+    from deepsir_tpu_torch.ops.ransac import ransac_correspondence, ransac_feature_matching
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    def call():
+        return ransac_feature_matching(src, ref, fs, fr, UTIL_RANSAC_DIST, UTIL_HYPOTHESES,
+                                       generator=seeded())
+    (t, frac), launches, ms = _util_counted(torch, dev, counted, "ransac_feature_matching",
+                                            call, (0, 0, 1, 0))
+    with plain_kernels():
+        (t_p, frac_p), plain_ms = _timed_call(torch, dev, call)
+    idx, pidx = match_argmin(fs[None], fr[None]), match_argmin_plain(fs[None], fr[None])
+    ties = _search_near_ties(torch, fs[None], fr[None], idx, pidx)
+    if ties["rows"]:
+        picks = torch.randint(0, src.shape[0], (UTIL_HYPOTHESES, 3), generator=seeded(),
+                              device=dev)
+        rows = torch.arange(src.shape[0], device=dev)
+        agree = idx[0] == pidx[0]
+        t, frac = ransac_correspondence(src, ref, torch.stack([rows, idx[0]], 1),
+                                        UTIL_RANSAC_DIST, picks=picks, valid=agree)
+        t_p, frac_p = ransac_correspondence(src, ref, torch.stack([rows, pidx[0]], 1),
+                                            UTIL_RANSAC_DIST, picks=picks, valid=agree)
+    err = float((t - t_p).abs().max())
+    if err > 1e-5 or float(frac) != float(frac_p):
+        raise AssertionError(f"feature-matching RANSAC: transforms {err} apart, fractions "
+                             f"{float(frac)} and {float(frac_p)}")
+    return launches, {"hypotheses": UTIL_HYPOTHESES, "points": int(src.shape[0]),
+                      "k2_near_ties": ties, "transform_err": err,
+                      "inlier_fraction": float(frac), "ms": ms, "plain_ms": plain_ms}
+
+
+def util_radius(torch, dev, src, ref, gt, counted):
+    """`radius_matches` (K1 at k = UTIL_K, one launch) against the same call
+    with the plain KNN: K1's neighbours equal knn_topk_plain's (`_knn_agree`,
+    bit for bit), so the compacted pairs and num_valid are equal. On the
+    card K1 at this shape is timed in turns with its yardstick (chunked
+    cdist + topk) by CUDA-graph replay, with its bound."""
+    from deepsir_tpu_torch.math import se3
+    from deepsir_tpu_torch.ops.cuda_knn import knn_topk, knn_topk_plain
+    from deepsir_tpu_torch.ops.radius_match import radius_matches
+
+    def call():
+        return radius_matches(src, ref, gt, UTIL_RADIUS, UTIL_K, UTIL_CAPACITY)
+    (pairs, num), launches, ms = _util_counted(torch, dev, counted, "radius_matches", call,
+                                               (1, 0, 0, 0))
+    with plain_kernels():
+        (p_pairs, p_num), plain_ms = _timed_call(torch, dev, call)
+    q, r = se3.transform(gt, src)[None].contiguous(), ref[None].contiguous()
+    (idx, sq), want = knn_topk(q, r, UTIL_K), knn_topk_plain(q, r, UTIL_K)
+    if dev.type == "cuda":
+        _knn_agree(torch, f"radius matches k={UTIL_K}", (idx, sq), want)
+    if not (torch.equal(pairs, p_pairs) and int(num) == int(p_num)):
+        raise AssertionError("radius_matches: the pairs differ from the plain KNN's")
+    total = int((sq < UTIL_RADIUS ** 2).sum())
+    if int(num) != min(total, UTIL_CAPACITY) or (pairs[int(num):] != -1).any():
+        raise AssertionError(f"radius_matches: num_valid {int(num)} of {total} valid pairs")
+    rec = {"points": int(src.shape[0]), "radius": UTIL_RADIUS, "k_per_point": UTIL_K,
+           "capacity": UTIL_CAPACITY, "num_valid": int(num), "valid_pairs": total,
+           "rows_at_k": int((sq[..., -1] < UTIL_RADIUS ** 2).sum()), "ms": ms,
+           "plain_ms": plain_ms}
+    if dev.type == "cuda":
+        def library():
+            for s0 in range(0, q.shape[1], 2048):
+                torch.topk(torch.cdist(q[:, s0:s0 + 2048], r), UTIL_K, dim=-1, largest=False)
+        kernel_ms, library_ms, runs = _graph_in_turns(lambda: knn_topk(q, r, UTIL_K), library,
+                                                      20, 2)
+        shape = _timed_shape(f"radius_matches k={UTIL_K} B=1", q, r, UTIL_K, kernel_ms,
+                             cuda_ms(lambda: knn_topk_plain(q, r, UTIL_K), 2), library_ms,
+                             q.shape[1] * r.shape[1])
+        shape.update(runs, max_abs_err=0.0, index_mismatches=0)
+        rec["k1"] = shape
+    return launches, rec
+
+
+def _rows_differ_at_near_ties(torch, what, centers, xyz, got, want, radius):
+    """Ball-query rows (got, want: (S, K) indices into xyz for each center)
+    may differ only where the float32 norm expansion's rounding can reorder
+    them: on a differing row the in-ball counts may differ only by points
+    within `tol` of the radius, and the float64 distances of the leading
+    in-ball entries, taken in each one's order, agree within `tol` (a near
+    tie may swap two), tol = 1e-5 x (|c|^2 + max |x|^2).
+    Returns the differing rows."""
+    rows = torch.nonzero((got != want).any(-1)).flatten()
+    c64, x64 = centers[rows].double(), xyz.double()
+    d = ((c64[:, None, :] - x64[None]) ** 2).sum(-1)                    # (rows, N)
+    tol = 1e-5 * ((c64 * c64).sum(-1) + (x64 * x64).sum(-1).max())
+    r2 = radius * radius
+    for i, row in enumerate(rows.tolist()):
+        dg, dw = d[i, got[row]], d[i, want[row]]
+        n_g, n_w = int((dg < r2).sum()), int((dw < r2).sum())
+        border = int(((d[i] - r2).abs() <= tol[i]).sum())
+        shared = min(n_g, n_w)
+        if abs(n_g - n_w) > border or \
+                (dg[:shared] - dw[:shared]).abs().max() > tol[i]:
+            raise AssertionError(f"{what}: row {row} differs beyond near ties")
+    return len(rows)
+
+
+def util_groups(torch, dev, xyz, feats, s: int):
+    """`sample_and_group` with s centers on the card against the CPU: the
+    farthest-point centers equal (or equal up to a step whose two candidates are within
+    1e-5 relative in float64, a near tie; the groups are then held up to
+    it), the ball queries equal but for near ties of the norm expansion
+    (`_rows_differ_at_near_ties`), and the grouped values equal where the
+    indices are (a gather and a subtraction)."""
+    from deepsir_tpu_torch.ops.pointnet import (farthest_point_sample, query_ball_point,
+                                                sample_and_group)
+    _, radius, k = UTIL_GROUPS
+    cpu_xyz, cpu_feats = xyz.cpu(), feats.cpu()
+    fps, fps_cpu = farthest_point_sample(xyz, s).cpu(), farthest_point_sample(cpu_xyz, s)
+    held = s
+    if not torch.equal(fps, fps_cpu):
+        held = int(torch.nonzero(fps != fps_cpu)[0])
+        x64 = cpu_xyz.double()
+        taken = x64[fps_cpu[:held]]
+        dist = ((x64[[int(fps[held]), int(fps_cpu[held])]][:, None] - taken[None]) ** 2
+                ).sum(-1).amin(-1)
+        if (dist[0] - dist[1]).abs() > 1e-5 * dist.abs().max():
+            raise AssertionError(f"farthest-point sampling: step {held} is no near tie")
+    centers = xyz[fps[:held].to(dev)]
+    balls = query_ball_point(radius, k, xyz, centers).cpu()
+    balls_cpu = query_ball_point(radius, k, cpu_xyz, cpu_xyz[fps_cpu[:held]])
+    rows = _rows_differ_at_near_ties(torch, "ball query", cpu_xyz[fps_cpu[:held]], cpu_xyz,
+                                     balls, balls_cpu, radius)
+    (new_xyz, grouped), ms = _timed_call(
+        torch, dev, lambda: sample_and_group(s, radius, k, xyz[None], feats[None]))
+    new_cpu, grouped_cpu = sample_and_group(s, radius, k, cpu_xyz[None], cpu_feats[None])
+    same = (balls == balls_cpu).all(-1)
+    if not (torch.equal(new_xyz[0, :held].cpu(), new_cpu[0, :held])
+            and torch.equal(grouped[0, :held].cpu()[same], grouped_cpu[0, :held][same])):
+        raise AssertionError("sample_and_group: grouped values differ where indices agree")
+    return {"centers": s, "radius": radius, "neighbours": k, "fps_steps_equal": held,
+            "ball_rows_differ": rows, "ms": ms}
+
+
+def util_soft(torch, dev, src, gt, rng):
+    """Sinkhorn with slack on (1, UTIL_SOFT, UTIL_SOFT) log affinities of a
+    cloud against its moved, noisy copy, and `weighted_kabsch_soft` over
+    exp of the result, on the card against the CPU: Sinkhorn within 1e-5 of
+    the largest magnitude (logsumexp sums in another order), the transforms
+    within 1e-5; the solve recovers the motion within 1e-2."""
+    from deepsir_tpu_torch.math import se3
+    from deepsir_tpu_torch.ops.distance import match_features
+    from deepsir_tpu_torch.ops.sinkhorn import compute_affinity, sinkhorn
+    from deepsir_tpu_torch.ops.svd3 import weighted_kabsch_soft
+    pts = src[:UTIL_SOFT][None]
+    noise = torch.as_tensor(rng.normal(scale=0.02, size=pts.shape).astype(np.float32))
+    tgt = se3.transform(gt, pts) + noise.to(dev)
+
+    def run(p, q):
+        beta = torch.ones(1, device=p.device)
+        log_alpha = compute_affinity(beta, match_features(se3.transform(gt.to(p.device), p), q),
+                                     alpha=0.5)
+        soft = sinkhorn(log_alpha, n_iters=5, slack=True)
+        return soft, weighted_kabsch_soft(p, q, torch.exp(soft))[0]
+    (soft, t), ms = _timed_call(torch, dev, lambda: run(pts, tgt))
+    soft_cpu, t_cpu = run(pts.cpu(), tgt.cpu())
+    soft_err = float((soft.cpu() - soft_cpu).abs().max() / soft_cpu.abs().max())
+    t_err = float((t.cpu() - t_cpu).abs().max())
+    pose_err = float((t_cpu[0] - gt.cpu()).abs().max())
+    if soft_err > 1e-5 or t_err > 1e-5 or pose_err > 1e-2:
+        raise AssertionError(f"sinkhorn / weighted_kabsch_soft: {soft_err}, {t_err}, {pose_err}")
+    return {"shape": list(soft.shape), "sinkhorn_err": soft_err,
+            "kabsch_soft_err": t_err, "pose_err": pose_err, "ms": ms}
+
+
+def util_chamfer(torch, dev, a, b, sig=None):
+    """`chamfer_loss` forward and backward on the card against the CPU. In
+    float32 the loss is finite and its distance from the CPU's float64 loss
+    at most twice the CPU float32 loss's (plus 1e-7 relative): the norm
+    expansion's rounding sets the error, and each side sums in its own
+    order; its grads are finite (a row whose nearest distance is near the
+    expansion's rounding gets a grad from 1 / sqrt(d) of that rounding, in
+    either package, so float32 grads are not compared). In float64 the loss
+    within 1e-10 relative and the grads within 1e-8 of their largest
+    entry."""
+    from deepsir_tpu_torch.losses.chamfer import chamfer_loss
+
+    def run(dev_, dtype):
+        args = [x.to(dev_, dtype).clone().requires_grad_() for x in (a, b)]
+        extra = [] if sig is None else [s.to(dev_, dtype) for s in sig]
+        loss = chamfer_loss(*args, *extra)
+        loss.backward()
+        return loss.detach().cpu().double(), [x.grad.cpu().double() for x in args]
+    (v32, g32), ms = _timed_call(torch, dev, lambda: run(dev, torch.float32))
+    (c32, _), (c64, cg64) = run("cpu", torch.float32), run("cpu", torch.float64)
+    v64, g64 = run(dev, torch.float64)
+    err32, cpu_err32 = float((v32 - c64).abs()), float((c32 - c64).abs())
+    err64 = float((v64 - c64).abs() / c64.abs())
+    grad64 = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(g64, cg64))
+    finite = bool(torch.isfinite(v32)) and all(bool(torch.isfinite(g).all()) for g in g32)
+    if not finite or err32 > 2 * cpu_err32 + 1e-7 * float(c64.abs()) or err64 > 1e-10 \
+            or grad64 > 1e-8:
+        raise AssertionError(f"chamfer_loss: finite {finite}, float32 {err32} (CPU's own "
+                             f"{cpu_err32}), float64 {err64}, grads {grad64}")
+    return {"points": [int(a.shape[-2]), int(b.shape[-2])], "weighted": sig is not None,
+            "loss": float(c64), "float32_err": err32, "cpu_float32_err": cpu_err32,
+            "float64_err": err64, "float64_grad_err": grad64, "ms": ms}
+
+
+def util_grid(torch, dev, points):
+    """`voxel_downsample` and `morton_code` of one cloud on the card against
+    the CPU: masks equal, means within 1e-6 of the cloud's largest
+    coordinate (the card's scatter-add sums in no fixed order); Morton
+    codes equal but at cell edges (`morton_edge_flips`, at most 0.1% of the
+    rows)."""
+    from deepsir_tpu_torch.ops.morton import morton_code
+    from deepsir_tpu_torch.ops.voxel import voxel_downsample
+    n = points.shape[0]
+    (out, mask), ms = _timed_call(torch, dev, lambda: voxel_downsample(points, UTIL_VOXEL, n))
+    out_cpu, mask_cpu = voxel_downsample(points.cpu(), UTIL_VOXEL, n)
+    mean_err = float((out.cpu() - out_cpu).abs().max())
+    scale = float(points.abs().max())
+    code, code_cpu = morton_code(points[:, :3]).cpu(), morton_code(points[:, :3].cpu())
+    flips = morton_edge_flips(points[:, :3].cpu().numpy(), None, code.numpy(), code_cpu.numpy())
+    if not torch.equal(mask.cpu(), mask_cpu) or mean_err > 1e-6 * scale or flips > 1e-3 * n:
+        raise AssertionError(f"voxel grid / Morton: masks equal {torch.equal(mask.cpu(), mask_cpu)}"
+                             f", means {mean_err}, Morton flips {flips}")
+    return {"voxel_size": UTIL_VOXEL, "capacity": n, "voxels": int(mask_cpu.sum()),
+            "voxel_mean_err": mean_err, "morton_edge_flips": flips, "voxel_ms": ms}
+
+
+def check_utilities(torch, dev, smi: str = "", n: int = N_POINTS):
+    """The "utilities" phase: the JAX package's opt-in utilities on one
+    seeded synthetic pair of n points with a known motion (`train_arrays`).
+    Feature-matching RANSAC over the feat pipeline's descriptors
+    (`util_ransac`, K2) and radius matches (`util_radius`, K1 at k = 32),
+    each held against its plain kernel; the voxel grid, Morton codes,
+    PointNet++ grouping, Sinkhorn with `weighted_kabsch_soft`, and the
+    chamfer losses (plain at n points, score-weighted at UTIL_WEIGHTED)
+    held against the CPU. On the CPU (`dev` "cpu", the tests) the plain
+    versions run and nothing is counted or timed against a yardstick.
+    Returns (the launches of the feat forward and the two kernel calls:
+    K1 16 + 1, K2 1; the phase's record)."""
+    from deepsir_tpu_torch.math import se3
+    counted = kernels() if dev.type == "cuda" else None
+    rng = np.random.default_rng(UTIL_SEED)
+    arrays = train_arrays(rng, 1)
+    if n != N_POINTS:
+        arrays = {k: v[:, :n] if k.startswith("points") else v for k, v in arrays.items()}
+    src = torch.as_tensor(arrays["points_src"][0], device=dev)
+    ref = torch.as_tensor(arrays["points_ref"][0], device=dev)
+    gt = torch.as_tensor(arrays["transform_gt"][0], device=dev)
+    (fs, fr), total, forward_ms = _util_counted(
+        torch, dev, counted, "feat forward", lambda: _util_descriptors(torch, dev, arrays, n),
+        (K1_PER_BATCH, 0, 0, 0))
+    launches, ransac = util_ransac(torch, dev, src[:, :3], ref[:, :3], fs, fr, counted)
+    for key in COUNTED:
+        total[key] += launches[key]
+    launches, radius = util_radius(torch, dev, src[:, :3], ref[:, :3], gt, counted)
+    for key in COUNTED:
+        total[key] += launches[key]
+    moved = se3.transform(gt, src[:, :3])
+    weighted = min(UTIL_WEIGHTED, n)
+    sig = [torch.as_tensor(rng.uniform(size=weighted).astype(np.float32)) for _ in range(2)]
+    record = {"device": smi, "feat_forward_ms": forward_ms, "ransac": ransac,
+              "radius_matches": radius,
+              "grid": util_grid(torch, dev, src),
+              "groups": util_groups(torch, dev, src[:, :3], src[:, 3:],
+                                    min(UTIL_GROUPS[0], n // 4)),
+              "soft": util_soft(torch, dev, src[:, :3], gt, rng),
+              "chamfer": util_chamfer(torch, dev, moved, ref[:, :3]),
+              "chamfer_weighted": util_chamfer(torch, dev, moved[:weighted],
+                                               ref[:weighted, :3], sig)}
+    log(f"utilities at {n} points: {json.dumps(record)}")
+    return total, record
+
+
+def morton_cells(code):
+    """The three 10-bit grid cells of int32 Morton codes (ops/morton.py),
+    as an (..., 3) int array."""
+    code = np.asarray(code, np.int64)
+    cells = np.zeros(code.shape + (3,), np.int64)
+    for axis in range(3):
+        for bit in range(10):
+            cells[..., axis] |= ((code >> (3 * bit + axis)) & 1) << bit
+    return cells
+
+
+def morton_edge_flips(xyz, valid, got, want) -> int:
+    """Two computations of `ops.morton.morton_code` on the same float32
+    clouds xyz (..., N, 3) may differ only at cell edges: on a row whose
+    codes differ, each axis that differs moves one cell, and the grid
+    coordinate (p - lo) * 1023 / (hi - lo), in float64 over the valid rows'
+    box, lies within one float32 ulp of the edge between the two cells (an
+    ulp of the float32 scale moves it across). Raises otherwise; returns the
+    rows that differ."""
+    xyz = np.asarray(xyz, np.float64)[..., :3]
+    if valid is None:
+        valid = np.ones(xyz.shape[:-1], bool)
+    valid = np.asarray(valid, bool)
+    lo = np.where(valid[..., None], xyz, np.inf).min(axis=-2, keepdims=True)
+    hi = np.where(valid[..., None], xyz, -np.inf).max(axis=-2, keepdims=True)
+    grid = (xyz - lo) * 1023.0 / np.maximum(hi - lo, 1e-12)
+    differ = np.asarray(got) != np.asarray(want)
+    if (differ & ~valid).any():
+        raise AssertionError("Morton codes differ on padding rows")
+    a, b = morton_cells(np.asarray(got)[differ]), morton_cells(np.asarray(want)[differ])
+    edge = np.maximum(a, b).astype(np.float64)
+    moved = a != b
+    far = np.abs(grid[differ] - edge) > np.spacing(edge.astype(np.float32))
+    if (np.abs(a - b) > 1).any() or (moved & far).any():
+        raise AssertionError(f"Morton codes differ off a cell edge: cells {a[:4]} against "
+                             f"{b[:4]}, grid {grid[differ][:4]}")
+    return int(differ.sum())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3481,6 +3864,11 @@ def main() -> int:
         launches, parallel = check_parallel(torch, dev, smi)
         for key, n in launches.items():
             total[key] += n
+    with phase("utilities"):
+        launches, utilities = check_utilities(torch, dev, smi)
+        for key, n in launches.items():
+            total[key] += n
+        k1["shapes"].append(utilities["radius_matches"]["k1"])
     log(json.dumps({"paths": paths}))
     log(json.dumps({"checkpoint": ckpt}))
     log(json.dumps({"train": train}))
@@ -3489,6 +3877,7 @@ def main() -> int:
     log(json.dumps({"cli": cli}))
     log(json.dumps({"precision": precision}))
     log(json.dumps({"parallel": parallel}))
+    log(json.dumps({"utilities": utilities}))
     for entry, key in zip((k1, k4, k2, k3), COUNTED):
         entry["launches"] = total[key]
     for entry, key in zip((k2, k3), LP_COUNTED):

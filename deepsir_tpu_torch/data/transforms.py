@@ -1,14 +1,34 @@
 """Sample transforms of the data layer, on the host
 (deepsir_tpu/data/transforms.py): resamplers, jitter, the half-space crop,
-the random rigid perturbations and the radius/height crop.
+the random rigid perturbations, the shuffle and the radius/height crop.
 
-Every transform draws from the np.random.Generator it is given.
+Every transform draws from the np.random.Generator it is given. The
+composable ones are called as `transform(sample, rng)` on a sample dict
+holding "points", or "points_src" and "points_ref" after `SplitSourceRef`.
 """
 from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from deepsir_tpu_torch.math import rand, se3_np
+
+
+def _clouds(sample: Dict) -> tuple:
+    return ("points",) if "points" in sample else ("points_src", "points_ref")
+
+
+class SplitSourceRef:
+    """"points" moved to "points_raw", with a copy of it as each of
+    "points_src" and "points_ref"."""
+
+    def __call__(self, sample: Dict, rng: np.random.Generator) -> Dict:
+        sample["points_raw"] = sample.pop("points")
+        sample["points_src"] = sample["points_raw"].copy()
+        sample["points_ref"] = sample["points_raw"].copy()
+        return sample
 
 
 def resample(rng: np.random.Generator, points: np.ndarray, k: int) -> np.ndarray:
@@ -34,6 +54,28 @@ def fixed_resample(points: np.ndarray, k: int) -> np.ndarray:
     return np.concatenate([np.tile(points, (reps, 1)), points[:rem]], axis=0)
 
 
+class Resampler:
+    """Each cloud resampled to exactly `num` rows (`resample`); a sample's
+    "crop_proportion" (p_src[, p_ref]) scales the source's count, and the
+    reference's when it has two entries, rounded up."""
+
+    def __init__(self, num: int):
+        self.num = num
+
+    def __call__(self, sample: Dict, rng: np.random.Generator) -> Dict:
+        if "points" in sample:
+            sample["points"] = resample(rng, sample["points"], self.num)
+            return sample
+        src_size = ref_size = self.num
+        prop = sample.get("crop_proportion")
+        if prop:
+            src_size = math.ceil(prop[0] * self.num)
+            ref_size = math.ceil(prop[1] * self.num) if len(prop) > 1 else self.num
+        sample["points_src"] = resample(rng, sample["points_src"], src_size)
+        sample["points_ref"] = resample(rng, sample["points_ref"], ref_size)
+        return sample
+
+
 class RandomJitter:
     """Clipped gaussian noise on the xyz columns."""
 
@@ -48,6 +90,14 @@ class RandomJitter:
         out[:, :3] = out[:, :3] + noise
         return out
 
+    def __call__(self, sample, rng: np.random.Generator):
+        """One cloud (an array) jittered, or each cloud of a sample."""
+        if isinstance(sample, np.ndarray):
+            return self.jitter(rng, sample)
+        for key in _clouds(sample):
+            sample[key] = self.jitter(rng, sample[key])
+        return sample
+
 
 def halfspace_crop(rng: np.random.Generator, points: np.ndarray,
                    p_keep: float) -> np.ndarray:
@@ -60,6 +110,23 @@ def halfspace_crop(rng: np.random.Generator, points: np.ndarray,
     else:
         mask = dist > np.percentile(dist, (1.0 - p_keep) * 100)
     return points[mask]
+
+
+class RandomCrop:
+    """The source cloud cut to ~p_keep[0] of its rows by `halfspace_crop`,
+    and the reference to ~p_keep[1] when p_keep has two entries; nothing
+    when every p_keep is 1."""
+
+    def __init__(self, p_keep: Optional[List[float]] = None):
+        self.p_keep = np.array(p_keep if p_keep is not None else [0.7, 0.7], dtype=np.float32)
+
+    def __call__(self, sample: Dict, rng: np.random.Generator) -> Dict:
+        if np.all(self.p_keep == 1.0):
+            return sample
+        sample["points_src"] = halfspace_crop(rng, sample["points_src"], self.p_keep[0])
+        if len(self.p_keep) > 1:
+            sample["points_ref"] = halfspace_crop(rng, sample["points_ref"], self.p_keep[1])
+        return sample
 
 
 class RandomTransformSE3:
@@ -80,6 +147,19 @@ class RandomTransformSE3:
         igt = self.generate(rng)
         return se3_np.apply_to_cloud(igt, pts), se3_np.inverse(igt), igt
 
+    def __call__(self, sample, rng: np.random.Generator):
+        """One cloud (an array): `transform`'s triple. A sample: "points"
+        moved, or "points_src" moved and "transform_gt" (3, 4) set to the
+        motion back."""
+        if isinstance(sample, np.ndarray):
+            return self.transform(rng, sample)
+        if "points" in sample:
+            sample["points"], _, _ = self.transform(rng, sample["points"])
+        else:
+            sample["points_src"], gt, _ = self.transform(rng, sample["points_src"])
+            sample["transform_gt"] = gt[:3, :]
+        return sample
+
 
 class RandomTransformSE3Euler(RandomTransformSE3):
     """Per-axis Euler angles, x and y scaled by xy_rot_scale."""
@@ -96,6 +176,15 @@ class RandomRotatorZ(RandomTransformSE3):
 
     def generate(self, rng: np.random.Generator) -> np.ndarray:
         return rand.random_rotation_z(rng, self.rot_mag)
+
+
+class ShufflePoints:
+    """The rows of each cloud in a random order."""
+
+    def __call__(self, sample: Dict, rng: np.random.Generator) -> Dict:
+        for key in _clouds(sample):
+            sample[key] = sample[key][rng.permutation(len(sample[key]))]
+        return sample
 
 
 def process_point_cloud(cloud: np.ndarray, r_min: float = 0.0, r_max: float = 50.0,

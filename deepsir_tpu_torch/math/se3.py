@@ -37,6 +37,24 @@ def transform(g: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return pts @ rot.transpose(-1, -2) + trans[..., None, :]
 
 
+def transform_cf(g: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply SE3 transform g (..., 3/4, 4) to channel-first points (..., 3, N)."""
+    return g[..., :3, :3] @ pts + g[..., :3, 3][..., None]
+
+
+def rotate(g: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """Apply only the rotation of g (..., 3/4, 4) to vectors (..., N, 3),
+    e.g. normals."""
+    return vecs @ g[..., :3, :3].transpose(-1, -2)
+
+
+def to_4x4(g: torch.Tensor) -> torch.Tensor:
+    """A (..., 3/4, 4) transform as a homogeneous (..., 4, 4) matrix."""
+    bottom = torch.zeros(*g.shape[:-2], 1, 4, dtype=g.dtype, device=g.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([g[..., :3, :], bottom], dim=-2)
+
+
 def pose_error(g_gt: torch.Tensor, g_pred: torch.Tensor, eps: float = 1e-16):
     """Residual rotation (degrees) and translation magnitude of inv(gt) @ pred
     (deepsir_tpu/math/se3.py:92). Metrics only: the arccos argument is

@@ -1,5 +1,5 @@
 """SE(3) helpers on numpy arrays, for the host side: the eval harness and
-the data layer (the functions of deepsir_tpu/math/se3_np.py that they read).
+the data layer (deepsir_tpu/math/se3_np.py).
 
 Transforms are ([B,] 3/4, 4) matrices [R | t]; points are ([B,] N, 3).
 """
@@ -9,6 +9,10 @@ import numpy as np
 from scipy.spatial.transform import Rotation
 
 _BOTTOM = np.array([[0.0, 0.0, 0.0, 1.0]])
+
+
+def identity() -> np.ndarray:
+    return np.eye(3, 4)
 
 
 def transform(g: np.ndarray, pts: np.ndarray) -> np.ndarray:
@@ -71,4 +75,13 @@ def xyzquat2mat(xyzquat: np.ndarray) -> np.ndarray:
     """The 4x4 transform of [x, y, z, qw, qx, qy, qz]."""
     mat = np.concatenate([quat2mat(xyzquat[3:]),
                           np.asarray(xyzquat[:3], dtype=float)[:, None]], axis=1)
+    return np.concatenate([mat, _BOTTOM], axis=0)
+
+
+def from_xyzquat(xyzquat: np.ndarray) -> np.ndarray:
+    """The 4x4 transform [R | -R t] of [tx, ty, tz, qx, qy, qz, qw], R from
+    the quaternion in scipy's (x, y, z, w) order."""
+    rot = Rotation.from_quat(xyzquat[3:])
+    mat = np.concatenate([rot.as_matrix(),
+                          rot.apply(-np.asarray(xyzquat[:3], dtype=float))[:, None]], axis=1)
     return np.concatenate([mat, _BOTTOM], axis=0)

@@ -3,15 +3,19 @@
 
 In a search a CUDA tensor goes to kernel K2, or K3 for both directions
 (ops/cuda_match.py), a CPU tensor to their plain PyTorch versions; the
-searches carry no gradient. `square_distance` is a differentiable torch
-op: the feat loss's descriptor distances, which the JAX package computes
-with a plain einsum too. It runs at fp32 grade (TF32 is off,
-deepsir_tpu_torch/__init__.py). `min_square_distance`, the metrics'
-chamfer term, is plain torch too, as it is plain XLA in the JAX package.
+searches carry no gradient. `square_distance` and `match_features` are
+differentiable torch ops: the feat loss's descriptor distances, which the
+JAX package computes with a plain einsum too. They run at fp32 grade (TF32
+is off, deepsir_tpu_torch/__init__.py). `pairwise_dist_chunked` reduces the
+(N, M) distance matrix tile by tile, with the gradient of its reduce;
+`min_square_distance`, the metrics' chamfer term, is its row minimum
+without a gradient, and `nearest_square_distance` the same minimum with
+the chamfer losses' gradient. All are plain torch, as they are plain XLA in
+the JAX package.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -27,20 +31,76 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     return d + torch.sum(dst * dst, dim=-1)[..., None, :]
 
 
-@torch.no_grad()
-def min_square_distance(src: torch.Tensor, ref: torch.Tensor, chunk: int = 2048) -> torch.Tensor:
-    """Each src point's least squared distance to ref, by the norm expansion
-    |a|^2 + |b|^2 - 2ab in src tiles of `chunk` rows, as
-    deepsir_tpu/ops/distance.py:min_square_distance computes it:
-    (..., N, C) x (..., M, C) -> (..., N)."""
+def match_features(feat_src: torch.Tensor, feat_ref: torch.Tensor,
+                   metric: str = "l2") -> torch.Tensor:
+    """Pairwise feature distance matrix (..., J, C) x (..., K, C) -> (..., J, K):
+    squared L2 ("l2"), its square root with 1e-12 under it ("euclidean"), or
+    the angle between the unit-normalised rows ("angle")."""
+    if metric == "l2":
+        return square_distance(feat_src, feat_ref)
+    if metric == "euclidean":
+        return torch.sqrt(square_distance(feat_src, feat_ref) + 1e-12)
+    if metric == "angle":
+        src = feat_src / (torch.linalg.vector_norm(feat_src, dim=-1, keepdim=True) + 1e-12)
+        ref = feat_ref / (torch.linalg.vector_norm(feat_ref, dim=-1, keepdim=True) + 1e-12)
+        return torch.arccos(torch.clamp(torch.einsum("...nc,...mc->...nm", src, ref), -1.0, 1.0))
+    raise NotImplementedError(metric)
+
+
+def _distance_tiles(src: torch.Tensor, ref: torch.Tensor, chunk: int):
+    """The (..., chunk, M) squared-distance tiles of src's rows against ref,
+    by the norm expansion |a|^2 + |b|^2 - 2ab as deepsir_tpu/ops/distance.py
+    computes them; the last tile holds the rows left."""
     ref_sq = torch.sum(ref * ref, dim=-1)[..., None, :]
-    parts = []
     for s in range(0, src.shape[-2], chunk):
         tile = src[..., s:s + chunk, :]
-        d = (torch.sum(tile * tile, dim=-1)[..., :, None] + ref_sq
-             - 2.0 * (tile @ ref.transpose(-1, -2)))
-        parts.append(torch.amin(d, dim=-1))
-    return torch.cat(parts, dim=-1)
+        yield (torch.sum(tile * tile, dim=-1)[..., :, None] + ref_sq
+               - 2.0 * (tile @ ref.transpose(-1, -2)))
+
+
+def pairwise_dist_chunked(src: torch.Tensor, ref: torch.Tensor,
+                          reduce_fn: Callable[[torch.Tensor], torch.Tensor],
+                          chunk: int = 2048) -> torch.Tensor:
+    """A reduction over the (N, M) squared-distance matrix, never built whole.
+
+    src (..., N, C), ref (..., M, C). `reduce_fn` maps each (..., chunk, M)
+    tile of `chunk` src rows to (..., chunk, ...); the tiles' results are
+    joined along the row axis. The gradient flows through `reduce_fn`.
+    """
+    return torch.cat([reduce_fn(d) for d in _distance_tiles(src, ref, chunk)],
+                     dim=src.dim() - 2)
+
+
+def _row_min(d: torch.Tensor) -> torch.Tensor:
+    return torch.amin(d, dim=-1)
+
+
+@torch.no_grad()
+def min_square_distance(src: torch.Tensor, ref: torch.Tensor, chunk: int = 2048) -> torch.Tensor:
+    """Each src point's least squared distance to ref, in src tiles of
+    `chunk` rows (`pairwise_dist_chunked`), as
+    deepsir_tpu/ops/distance.py:min_square_distance computes it:
+    (..., N, C) x (..., M, C) -> (..., N). No gradient: the metrics' term;
+    the chamfer losses take `nearest_square_distance`."""
+    return pairwise_dist_chunked(src, ref, _row_min, chunk)
+
+
+def nearest_square_distance(src: torch.Tensor, ref: torch.Tensor,
+                            chunk: int = 2048) -> torch.Tensor:
+    """`min_square_distance` with a gradient, for the chamfer losses:
+    (..., N, C) x (..., M, C) -> (..., N).
+
+    The value is the tiled minimum's, bit for bit. The gradient is the norm
+    expansion's at each row's nearest ref row (the first on exact ties,
+    where JAX's tiled minimum shares it among them), from the pairs alone,
+    so no (N, M) tile is kept for the backward.
+    """
+    with torch.no_grad():
+        mins, near = zip(*(torch.min(d, dim=-1) for d in _distance_tiles(src, ref, chunk)))
+    partner = gather_points(ref, torch.cat(near, dim=-1))
+    live = (torch.sum(src * src, dim=-1) + torch.sum(partner * partner, dim=-1)
+            - 2.0 * torch.sum(src * partner, dim=-1))
+    return torch.cat(mins, dim=-1) + (live - live.detach())
 
 
 @torch.no_grad()

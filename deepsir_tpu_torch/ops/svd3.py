@@ -165,3 +165,15 @@ def weighted_kabsch(src: torch.Tensor, tgt: torch.Tensor, weights: torch.Tensor)
     ident = torch.eye(3, 4, dtype=transform.dtype,
                       device=transform.device).expand(transform.shape)
     return torch.where(invalid[..., None, None], ident, transform), invalid
+
+
+def weighted_kabsch_soft(src: torch.Tensor, tgt: torch.Tensor, weights: torch.Tensor):
+    """Weighted Kabsch over a soft assignment (RPM-style).
+
+    src (..., M, 3), tgt (..., N, 3), weights (..., M, N): each src point's
+    virtual target is its weighted mean of tgt, and its row sum of weights
+    is its weight in `weighted_kabsch`.
+    """
+    w_sum = torch.sum(weights, dim=-1, keepdim=True)                  # (..., M, 1)
+    virtual_tgt = (weights @ tgt) / (w_sum + _EPS)
+    return weighted_kabsch(src, virtual_tgt, w_sum[..., 0])

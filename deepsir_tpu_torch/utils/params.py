@@ -152,7 +152,7 @@ def _to_flax_leaf(key: str, value: torch.Tensor) -> Tuple[Tuple[str, ...], np.nd
     return path, np.ascontiguousarray(arr.T if transpose else arr)
 
 
-def _nest(flat: Mapping[Tuple[str, ...], object]) -> Dict:
+def nest_tree(flat: Mapping[Tuple[str, ...], object]) -> Dict:
     tree: Dict = {}
     for path, leaf in flat.items():
         node = tree
@@ -168,7 +168,7 @@ def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     """A state_dict of a `Network` -> the flax variables
     {"params": tree} with numpy leaves: the inverse of `from_jax_params`,
     every entry used once, Linear weights transposed back to kernels."""
-    return {"params": _nest(dict(_to_flax_leaf(k, v) for k, v in state_dict.items()))}
+    return {"params": nest_tree(dict(_to_flax_leaf(k, v) for k, v in state_dict.items()))}
 
 
 # the parameter groups each pipeline trains (deepsir_tpu/training.py:37-41).
@@ -209,7 +209,7 @@ def to_jax_opt_state(model: Network, optimizer: torch.optim.Optimizer) -> Dict:
         if "step" in state:
             count = int(state["step"])
     counts = np.asarray(count, np.int32)
-    adam = {"count": counts, "mu": {"params": _nest(mu)}, "nu": {"params": _nest(nu)}}
+    adam = {"count": counts, "mu": {"params": nest_tree(mu)}, "nu": {"params": nest_tree(nu)}}
     return {"inner_states": {"freeze": {"inner_state": {}},
                              "train": {"inner_state": {"0": adam,
                                                        "1": {"count": counts.copy()}}}}}

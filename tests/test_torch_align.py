@@ -13,6 +13,7 @@ Tolerances and why:
   match changes the solve's input).
 - invalid: equal.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import importlib.util
 import json
 from pathlib import Path

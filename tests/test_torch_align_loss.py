@@ -15,6 +15,7 @@ added to their absolute tolerance and to the total's. A term with no path
 to an input gives JAX a zero gradient and torch none. `correspondence_correct`
 equal to JAX's.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -33,6 +33,7 @@ agree in every entry (a flipped neighbour or match changes the input of the
 inlier net and the solve), transforms 1e-3 for every pair; `invalid` equal;
 scores 1e-4 where the pyramids agree.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import importlib.util
 from pathlib import Path
 from unittest import mock

@@ -25,6 +25,7 @@ Tolerances and why:
   1e-3 for every pair, the bound chip_smoke.py holds on the card.
 - invalid: equal.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import importlib.util
 import json
 from pathlib import Path

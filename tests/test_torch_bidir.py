@@ -10,6 +10,7 @@ and at most 0.1% of them may differ. Planted exact ties must go to the lowest
 index in both directions exactly. The mutual gate is integer and comparison
 logic on the same inputs, so it must equal JAX's exactly.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

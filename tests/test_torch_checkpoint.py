@@ -14,6 +14,7 @@ first iteration whose matches differ from JAX's (a flipped match changes the
 solve's input) or whose pose solve is ill-conditioned (chip_smoke.py's
 `held_iterations`: fp32 rounding alone moves such a solve by up to ~1e-3).
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import importlib.util
 import json
 from pathlib import Path

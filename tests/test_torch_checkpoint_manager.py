@@ -4,6 +4,7 @@ interval) leaves the same files and the same checkpoints.txt in both; a
 directory resolves to model_best.msgpack; JAX's CheckPointManager.load
 reads the port's best checkpoint into its TrainState bit for bit, and the
 port's load reads JAX's (params, Adam moments, count, step) bit for bit."""
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import os
 import time
 

@@ -14,6 +14,7 @@ readers, and the port resuming a training state the JAX package wrote.
   the step. The file equals the JAX checkpoint it was resumed from, byte
   for byte: nothing was lost or reordered.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import dataclasses
 from pathlib import Path
 

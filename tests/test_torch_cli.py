@@ -15,6 +15,7 @@
 - validation's scores, both as `python -m` modules, the step
   tracer, the summaries' file format and the debug mode.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import json
 import os
 import shlex

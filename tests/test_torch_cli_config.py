@@ -4,6 +4,7 @@ same resolved config, `dataclasses.asdict` for `dataclasses.asdict` and the
 config.json text byte for byte; the dataset-dependent constants, the --dev
 clamps, --device, and `read_run_config` reading every data and train key.
 The comparisons are exact: both packages parse the same strings."""
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import dataclasses
 import json
 import shlex

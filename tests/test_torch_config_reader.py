@@ -4,6 +4,7 @@ that `check_supported` admits, and to its pipeline and its loss, train,
 eval and data blocks, field for field as the JAX package reads them;
 unknown keys, a pipeline outside the three and precision the port does not
 compute raise."""
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import dataclasses
 import json
 from pathlib import Path

@@ -6,6 +6,7 @@ off; with it on, the match lists are the same sets and every other value
 is within 1e-4. `math/rand.py`, `data/transforms.py` and the host ops
 (voxel grid, radius matches, ICP) are bit-equal on seeded generators with
 the library off, and within 1e-4 of it on."""
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import numpy as np
 import pytest
 

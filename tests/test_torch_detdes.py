@@ -12,6 +12,7 @@ Tolerances: loss values 1e-5 relative; accuracy equal; gradients of
 loss_feat + loss_det with respect to both descriptor sets within 1e-5 of
 the gradient's largest magnitude; distances 1e-5
 relative (1e-5 absolute where a value is near 0)."""
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

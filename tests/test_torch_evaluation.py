@@ -23,6 +23,7 @@ Tolerances and why:
   (3.4e-3 deg) from the TPU's, the port 4 ulps (3.7e-3 deg). The
   summary's err_r_deg fields within 3.4e-3 deg.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import csv
 import importlib.util
 import json

@@ -2,6 +2,7 @@
 imports JAX, flax, optax, msgpack, tensorboardX or anything of the JAX
 package, and
 `chip_smoke.py` fails without a CUDA device."""
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import os
 import re
 import shutil

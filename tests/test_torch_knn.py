@@ -7,6 +7,7 @@ expansion. The two may order neighbours differently only where two distances
 agree within float32 rounding, so index mismatches are allowed only where the
 exact (float64) distances are within 1e-5 relative.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ lane-wise minimum with the queue, bitonic merge), fewer inserted one at a
 time where they beat an entry; k = 1 as a running minimum per lane and a butterfly argmin; then the
 split warps' queues merged, each reversed into the same minimum-and-merge
 step. The constants kTile, kWarps, kQ, kBitonicMin and kWindowTile are read
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 from knn_select.cuh itself.
 
 The distances fed to the model are the plain version's float32 values, which

@@ -6,6 +6,7 @@ products in different orders, so they may differ only where two distances
 agree within float32 rounding: mismatched rows must be within 1e-5 relative
 in exact (float64) distance.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

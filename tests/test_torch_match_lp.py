@@ -15,6 +15,7 @@
   the fp32 plain version, under the fp32 near-tie rule, and why three
   products: one TF32 product errs ~1000x more than fp32 does.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

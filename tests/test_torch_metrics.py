@@ -13,6 +13,7 @@ Tolerances and why:
   (the float32 arccos is well conditioned there); chamfer_dist: 1e-5
   relative; succ: equal.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import logging
 
 import jax.numpy as jnp

@@ -4,6 +4,7 @@ the same parameters (converted by `from_jax_params`), on the CPU.
 Same float32 arithmetic in a different order (and GroupNorm's variance taken
 in two passes where flax uses E[x^2] - E[x]^2): outputs agree to 1e-4.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 from pathlib import Path
 
 import jax

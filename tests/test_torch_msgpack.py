@@ -4,6 +4,7 @@ checkpoint reader against `msgpack` and flax's `msgpack_restore`.
 Leaf for leaf: the same paths, and every array of the same dtype, shape and
 bytes; every other leaf equal and of the same type.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 from pathlib import Path
 
 import msgpack

@@ -5,6 +5,7 @@ Gathers move data only, so they must be bit-equal. The SVD and the Kabsch
 solve run the same algorithm in float32 with a different summation order:
 values agree to 1e-5.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -55,8 +55,11 @@ against the 1-process run: the trained params within 1e-5. On one process:
 """
 from __future__ import annotations
 
+import torch_workers  # noqa: F401  (torch's threads under xdist)
+import ctypes
 import json
 import os
+import signal
 import socket
 import subprocess
 import sys
@@ -311,10 +314,19 @@ def _env():
     return env
 
 
+def _die_with_parent() -> None:
+    """In a spawned child: SIGKILL it when the process that spawned it ends
+    (Linux prctl PR_SET_PDEATHSIG), so that a test process killed at a
+    time limit leaves no rank behind."""
+    ctypes.CDLL("libc.so.6", use_errno=True).prctl(1, signal.SIGKILL)
+
+
 def _run_all(cmds, cwd, env_of) -> list:
-    """Run the commands at once; their outputs, after each has exited 0."""
+    """Run the commands at once; their outputs, after each has exited 0.
+    Whatever still runs when this returns or raises is killed."""
     procs = [subprocess.Popen(cmd, cwd=cwd, env=env_of(i), stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
+                              stderr=subprocess.STDOUT, text=True,
+                              preexec_fn=_die_with_parent)
              for i, cmd in enumerate(cmds)]
     outs = []
     try:

@@ -30,6 +30,7 @@ leaf rule.
 Also: dropout before `fc_label` draws from the caller's generator, once
 per backbone pass, reproducibly.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 from unittest import mock
 
 import jax

@@ -13,6 +13,7 @@ the CPU, in fp32.
   `to_jax_params`, `init_params` and the Adam-state mapping give JAX's tree.
 - `use_ppf` with feat_len < 6 raises, naming the option.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import jax
 import numpy as np
 import pytest

@@ -3,6 +3,7 @@ cases of tests/test_prefetch.py on the CPU: order and transfer, a custom
 transfer, a source exception, an empty source and an abandoned consumer.
 The CUDA side stream and its events run only on the card (chip_smoke.py
 phase "eval" feeds every inference sweep through it)."""
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import threading
 import time
 

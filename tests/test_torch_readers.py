@@ -5,6 +5,7 @@ gt.log trajectories and PLY fragments, binary and ascii), with the JAX
 package's optional C++ library off. Each package reads its own copy of a
 tree (the ground-truth ICP caches are written into it), and every batch of
 every split is bit-equal: points, poses, masks, labels, match lists."""
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import os
 import pickle
 import shutil

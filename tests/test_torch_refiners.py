@@ -29,6 +29,7 @@ Tolerances and why:
   fixture), under each refiner setting: 1e-5 (measured 3e-7); settings with
   ICP ICP_F32 (measured 4.6e-6).
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import importlib.util
 from pathlib import Path
 from types import SimpleNamespace

@@ -4,6 +4,7 @@ against the JAX package's, on seeded numpy inputs.
 Tolerances: the loss 1e-6 relative, its gradient 1e-5 of the gradient's
 largest magnitude; the accuracy, the confusion counts and the metric's
 IoUs exact (the IoUs are the same numpy arithmetic on equal counts)."""
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

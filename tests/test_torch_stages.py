@@ -12,6 +12,7 @@ each at dropout 0: loss 1e-5 relative, each trained leaf's grad 1e-4 and
 its param after the step 1e-5 of the leaf's scale (chip_smoke.leaf_error).
 The chain: leaf counts and every leaf equal.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import json
 from pathlib import Path
 

@@ -19,6 +19,7 @@
   on well-conditioned inputs (eps 1e-6, atol 1e-5, rtol 1e-4).
 - The autograd graph holds no Jacobi sweep: the SVD is one node.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -21,6 +21,7 @@ direction; those four are held to the noise bound and left out of the
 params comparison. Also: the schedule against optax, the skip guard, the
 freeze and the dropout draw.
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

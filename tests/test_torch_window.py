@@ -14,6 +14,7 @@ Tolerances and why:
   agree on > 99% of entries, distances within rtol 4e-3).
 - strided pyramid: indices equal but for near ties as above (at most 0.1%).
 """
+import torch_workers  # noqa: F401  (torch's threads under xdist)
 import numpy as np
 import pytest
 import torch
