@@ -302,6 +302,7 @@ def _train(args, argv) -> str:
                     writer.add_scalar("val_score", score, step)
                     saver.save(model, optimizer, step, score=score)
         logger.info("Epoch %d done (step %d)", epoch, step)
+    tracer.close()                  # a run that ended inside the traced window
 
     # the final checkpoint; the best when no validation ran, so that the
     # run's ckpt directory always resolves to model_best.msgpack

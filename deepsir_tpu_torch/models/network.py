@@ -69,6 +69,7 @@ from deepsir_tpu_torch.ops.pyramid import (Pyramid, build_cloud_pyramid, concat_
                                            slice_neighbours)
 from deepsir_tpu_torch.ops.svd3 import weighted_kabsch
 from deepsir_tpu_torch.utils.collectives import ProcessGroup
+from deepsir_tpu_torch.utils.profiling import span
 
 
 class PairBatch(NamedTuple):
@@ -186,24 +187,27 @@ class Network(nn.Module):
         the first `backbone_num_knn` neighbours when that is > 0. In
         training the dropout before `fc_label` draws from `generator`."""
         b = batch.points_src.shape[0]
-        pts = torch.cat([batch.points_src, batch.points_ref], dim=0)
-        pyr = slice_neighbours(concat_pyramids(batch.pyramid_src, batch.pyramid_ref),
-                               self.cfg.backbone_num_knn)
-        feat, logits = self.feat_extractor(pts, pyr, train=train, generator=generator,
-                                           group=group, stacked=2)
+        with span("deepsir.backbone"):
+            pts = torch.cat([batch.points_src, batch.points_ref], dim=0)
+            pyr = slice_neighbours(concat_pyramids(batch.pyramid_src, batch.pyramid_ref),
+                                   self.cfg.backbone_num_knn)
+            feat, logits = self.feat_extractor(pts, pyr, train=train, generator=generator,
+                                               group=group, stacked=2)
         return feat[:b], logits[:b], feat[b:], logits[b:]
 
     def score_pair(self, batch: PairBatch, feat_src, feat_ref, logits_src, logits_ref):
         """Keypoint scores of both clouds in one stacked call."""
         b = batch.points_src.shape[0]
-        neigh = torch.cat([batch.pyramid_src.neigh_idx[0], batch.pyramid_ref.neigh_idx[0]], dim=0)
-        if self.cfg.backbone_num_knn > 0:
-            # the backbone's neighbourhoods
-            neigh = neigh[..., :self.cfg.backbone_num_knn]
-        score = score_points(
-            torch.cat([feat_src, feat_ref], dim=0),
-            torch.cat([batch.points_src[..., :3], batch.points_ref[..., :3]], dim=0),
-            torch.cat([logits_src, logits_ref], dim=0), neigh)
+        with span("deepsir.score"):
+            neigh = torch.cat([batch.pyramid_src.neigh_idx[0], batch.pyramid_ref.neigh_idx[0]],
+                              dim=0)
+            if self.cfg.backbone_num_knn > 0:
+                # the backbone's neighbourhoods
+                neigh = neigh[..., :self.cfg.backbone_num_knn]
+            score = score_points(
+                torch.cat([feat_src, feat_ref], dim=0),
+                torch.cat([batch.points_src[..., :3], batch.points_ref[..., :3]], dim=0),
+                torch.cat([logits_src, logits_ref], dim=0), neigh)
         return score[:b], score[b:]
 
     def forward_pair(self, batch: PairBatch, train: bool = False,
@@ -228,13 +232,14 @@ class Network(nn.Module):
             score_src, score_ref = self.score_pair(batch, feat_src, feat_ref,
                                                    logits_src, logits_ref)
             if self.pipeline == "feat":
-                feat_src = self.aggregate_side(xyz_src, feat_src, score_src, group)
-                feat_ref = self.aggregate_side(xyz_ref, feat_ref, score_ref, group)
-                if cfg.num_sub > 0:
-                    score_src, xyz_src, feat_src = top_k_select(score_src, cfg.num_sub,
-                                                                xyz_src, feat_src)
-                    score_ref, xyz_ref, feat_ref = top_k_select(score_ref, cfg.num_sub,
-                                                                xyz_ref, feat_ref)
+                with span("deepsir.descriptor"):
+                    feat_src = self.aggregate_side(xyz_src, feat_src, score_src, group)
+                    feat_ref = self.aggregate_side(xyz_ref, feat_ref, score_ref, group)
+                    if cfg.num_sub > 0:
+                        score_src, xyz_src, feat_src = top_k_select(score_src, cfg.num_sub,
+                                                                    xyz_src, feat_src)
+                        score_ref, xyz_ref, feat_ref = top_k_select(score_ref, cfg.num_sub,
+                                                                    xyz_ref, feat_ref)
         if self.pipeline != "feat":
             feat_src, feat_ref = l2_normalize(feat_src), l2_normalize(feat_ref)
         return PairOutput(feat_src, feat_ref, xyz_src, xyz_ref, logits_src, logits_ref,
@@ -242,7 +247,9 @@ class Network(nn.Module):
 
     def _source(self, xyz0, score, ff, pyramid, mask) -> _Source:
         pyr = slice_neighbours(pyramid, self.cfg.inlier_num_knn)
-        return _Source(xyz0, score, ff, pyr, self.inlier_model.pos_cache(pyr), mask)
+        with span("deepsir.inlier_cache"):
+            pos = self.inlier_model.pos_cache(pyr)
+        return _Source(xyz0, score, ff, pyr, pos, mask)
 
     def forward_align(self, batch: PairBatch, opts: ForwardOptions, train: bool = False,
                       generator: Optional[torch.Generator] = None,
@@ -283,8 +290,9 @@ class Network(nn.Module):
                                                    logits_src, logits_ref)
             # loop-invariant: the ref descriptor and mlp_feat of the source
             # features; the inlier LocSE cache (below) keeps its graph
-            fr = self.aggregate_side(xyz_ref, feat_ref0, score_ref, group)
-            ff_src = self.mlp_feat(feat_src0, group)
+            with span("deepsir.descriptor"):
+                fr = self.aggregate_side(xyz_ref, feat_ref0, score_ref, group)
+                ff_src = self.mlp_feat(feat_src0, group)
         full = self._source(xyz_src0, score_src, ff_src, batch.pyramid_src, batch.mask_src)
 
         b = xyz_src0.shape[0]
@@ -324,52 +332,59 @@ class Network(nn.Module):
         for _ in range(num_iter):
             with torch.no_grad():
                 # the inlier net's inputs carry no gradient
-                fs = self.aggregate_moving(xyz_src, src.score, src.ff, group)
+                with span("deepsir.loop.aggregate"):
+                    fs = self.aggregate_moving(xyz_src, src.score, src.ff, group)
                 lp = self.low_precision
-                if self.matcher is not None:
-                    # the reverse call shards the source cloud: the matcher
-                    # is argument-generic
-                    idx = self.matcher(fs, fr)                               # (B, N)
-                    ridx = self.matcher(fr, fs) if need_ridx else None       # (B, M)
-                elif need_ridx:
-                    idx, ridx = nearest_neighbour_bidirectional(fs, fr, lp)  # (B, N), (B, M)
+                with span("deepsir.loop.search"):
+                    # idx (B, N); ridx (B, M), the reverse match
+                    if self.matcher is not None:
+                        # the reverse call shards the source cloud: the matcher
+                        # is argument-generic
+                        idx = self.matcher(fs, fr)
+                        ridx = self.matcher(fr, fs) if need_ridx else None
+                    elif need_ridx:
+                        idx, ridx = nearest_neighbour_bidirectional(fs, fr, lp)
+                    else:
+                        idx = nearest_neighbour_index(fs, fr, lp)
+                with span("deepsir.loop.inputs"):
+                    xyz_ref_new = gather_points(xyz_ref, idx)
+                    # the extra channels stack as [dist, recip] whatever the order
+                    # of the config string, as the reference stacks them
+                    feats = [xyz_src, xyz_ref_new]
+                    if "dist" in self.extras:
+                        feats.append(torch.linalg.vector_norm(
+                            fs - gather_points(fr, idx), dim=-1, keepdim=True))
+                    if "recip" in self.extras:
+                        # |src_i - src[reverse(idx_i)]| in untransformed coordinates
+                        back = gather_points(src.xyz0, ridx)                    # (B, M, 3)
+                        feats.append(torch.linalg.vector_norm(
+                            gather_points(back, idx) - src.xyz0, dim=-1, keepdim=True))
+                    pair_feats = torch.cat(feats, dim=-1)
+            with span("deepsir.loop.inlier"):
+                _, logit = self.inlier_model(pair_feats, src.pyramid, pos_cache=src.pos,
+                                             train=train, generator=generator, group=group)
+                logit = logit[..., 0]
+            with span("deepsir.loop.gate"):
+                weights = torch.sigmoid(logit)
+                if clip_weight and cfg.clip_weight_thresh > 0:
+                    weights = torch.where(weights < cfg.clip_weight_thresh,
+                                          torch.zeros_like(weights), weights)
+                if src.mask is not None:
+                    # padded rows duplicate real points: no double vote
+                    weights = weights * src.mask
+                if cfg.mutual_check:
+                    weights = weights * mutual_gate(idx, ridx, src_xyz=src.xyz0,
+                                                    tol=cfg.mutual_check_tol)
+            with span("deepsir.loop.pose"):
+                if cfg.absolute_pose_solve:
+                    # the untransformed source straight onto the matched refs
+                    cum, bad = weighted_kabsch(src.xyz0, xyz_ref_new, weights)
+                    xyz_src = se3.transform(cum.detach(), src.xyz0)
                 else:
-                    idx = nearest_neighbour_index(fs, fr, lp)                # (B, N)
-                xyz_ref_new = gather_points(xyz_ref, idx)
-                # the extra channels stack as [dist, recip] whatever the order
-                # of the config string, as the reference stacks them
-                feats = [xyz_src, xyz_ref_new]
-                if "dist" in self.extras:
-                    feats.append(torch.linalg.vector_norm(
-                        fs - gather_points(fr, idx), dim=-1, keepdim=True))
-                if "recip" in self.extras:
-                    # |src_i - src[reverse(idx_i)]| in untransformed coordinates
-                    back = gather_points(src.xyz0, ridx)                    # (B, M, 3)
-                    feats.append(torch.linalg.vector_norm(
-                        gather_points(back, idx) - src.xyz0, dim=-1, keepdim=True))
-                pair_feats = torch.cat(feats, dim=-1)
-            _, logit = self.inlier_model(pair_feats, src.pyramid, pos_cache=src.pos,
-                                         train=train, generator=generator, group=group)
-            logit = logit[..., 0]
-            weights = torch.sigmoid(logit)
-            if clip_weight and cfg.clip_weight_thresh > 0:
-                weights = torch.where(weights < cfg.clip_weight_thresh,
-                                      torch.zeros_like(weights), weights)
-            if src.mask is not None:
-                # padded rows duplicate real points: no double vote
-                weights = weights * src.mask
-            if cfg.mutual_check:
-                weights = weights * mutual_gate(idx, ridx, src_xyz=src.xyz0,
-                                                tol=cfg.mutual_check_tol)
-            if cfg.absolute_pose_solve:
-                # the untransformed source straight onto the matched refs
-                cum, bad = weighted_kabsch(src.xyz0, xyz_ref_new, weights)
-                xyz_src = se3.transform(cum.detach(), src.xyz0)
-            else:
-                r_t, bad = weighted_kabsch(xyz_src, xyz_ref_new, weights)
-                xyz_src = se3.transform(r_t.detach(), xyz_src)
-                cum = se3.concatenate(r_t, cum)
-            invalid = invalid | bad
+                    r_t, bad = weighted_kabsch(xyz_src, xyz_ref_new, weights)
+                    xyz_src = se3.transform(r_t.detach(), xyz_src)
+                    cum = se3.concatenate(r_t, cum)
+                invalid = invalid | bad
             transforms.append(cum)
             logits_iters.append(logit)
             idx_iters.append(idx)

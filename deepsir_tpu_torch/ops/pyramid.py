@@ -14,6 +14,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from deepsir_tpu_torch.ops.knn import knn
+from deepsir_tpu_torch.utils.profiling import span
 
 
 class Pyramid(NamedTuple):
@@ -65,9 +66,10 @@ def build_cloud_pyramid(cfg, xyz: torch.Tensor) -> Pyramid:
     ModelConfig): "strided" with the window halo under
     `pyramid_order="morton"`, "first" with no window otherwise."""
     morton = cfg.pyramid_order == "morton"
-    return build_pyramid(xyz, cfg.num_knn, cfg.sub_sampling_ratio,
-                         sample="strided" if morton else "first",
-                         window_halo=cfg.knn_window_halo if morton else 0)
+    with span("deepsir.pyramid"):
+        return build_pyramid(xyz, cfg.num_knn, cfg.sub_sampling_ratio,
+                             sample="strided" if morton else "first",
+                             window_halo=cfg.knn_window_halo if morton else 0)
 
 
 def slice_neighbours(pyr: Pyramid, k: int) -> Pyramid:

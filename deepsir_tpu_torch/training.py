@@ -39,6 +39,7 @@ from deepsir_tpu_torch.models.network import ForwardOptions, Network, PairBatch,
 from deepsir_tpu_torch.ops.pyramid import build_cloud_pyramid
 from deepsir_tpu_torch.utils.collectives import ProcessGroup, global_sum
 from deepsir_tpu_torch.utils.params import trainable_parameters
+from deepsir_tpu_torch.utils.profiling import span
 
 _KEYS = ("points_src", "points_ref", "transform_gt")
 _MASKS = ("mask_src", "mask_ref")
@@ -75,15 +76,17 @@ def device_batch(cfg: ModelConfig, arrays: Dict[str, np.ndarray],
     extra = sorted(set(arrays) - set(_KEYS) - set(_MASKS) - set(_INDICES))
     if extra:
         raise NotImplementedError(f"device_batch arrays {extra}")
-    src, ref = (_to_device(arrays[k], device) for k in ("points_src", "points_ref"))
-    masks = {k: _to_device(arrays[k], device) for k in _MASKS if k in arrays}
-    indices = {k: torch.as_tensor(arrays[k], device=device).to(torch.int32)
-               for k in _INDICES if k in arrays}
-    return PairBatch(
-        points_src=src, points_ref=ref,
-        pyramid_src=build_cloud_pyramid(cfg, src[..., :3]),
-        pyramid_ref=build_cloud_pyramid(cfg, ref[..., :3]),
-        transform_gt=_to_device(arrays["transform_gt"], device), **masks, **indices)
+    with span("deepsir.h2d"):
+        src, ref = (_to_device(arrays[k], device) for k in ("points_src", "points_ref"))
+        masks = {k: _to_device(arrays[k], device) for k in _MASKS if k in arrays}
+        indices = {k: torch.as_tensor(arrays[k], device=device).to(torch.int32)
+                   for k in _INDICES if k in arrays}
+    pyramid_src = build_cloud_pyramid(cfg, src[..., :3])
+    pyramid_ref = build_cloud_pyramid(cfg, ref[..., :3])
+    with span("deepsir.h2d"):
+        transform_gt = _to_device(arrays["transform_gt"], device)
+    return PairBatch(points_src=src, points_ref=ref, pyramid_src=pyramid_src,
+                     pyramid_ref=pyramid_ref, transform_gt=transform_gt, **masks, **indices)
 
 
 def batch_arrays_only(batch: Dict) -> Dict[str, np.ndarray]:
@@ -136,28 +139,33 @@ def compute_loss(model: Network, loss_cfg: LossConfig, batch: PairBatch,
     terms are this rank's shares of the global batch's (the accuracy is
     global already), and `invalid` and `pred_idx` are this rank's."""
     if model.pipeline != "align":
-        out = model.forward_pair(batch, train=True, generator=generator, group=group)
-        invalid = torch.zeros((), dtype=torch.bool, device=batch.points_src.device)
-        if model.pipeline == "feat":
-            loss, acc = det_des_loss(out.feat_src, out.feat_ref, out.xyz_src, out.xyz_ref,
-                                     out.score_src, out.score_ref, batch.transform_gt,
-                                     loss_cfg, group)
-        else:
-            if batch.labels_src is None or batch.labels_ref is None:
-                raise ValueError("the label loss needs labels_src and labels_ref")
-            loss_s, acc_s = semantic_loss(out.logits_src, batch.labels_src, group)
-            loss_r, acc_r = semantic_loss(out.logits_ref, batch.labels_ref, group)
-            loss, acc = loss_s + loss_r, (acc_s + acc_r) / 2
+        with span("deepsir.train.forward"):
+            out = model.forward_pair(batch, train=True, generator=generator, group=group)
+            invalid = torch.zeros((), dtype=torch.bool, device=batch.points_src.device)
+        with span("deepsir.train.loss"):
+            if model.pipeline == "feat":
+                loss, acc = det_des_loss(out.feat_src, out.feat_ref, out.xyz_src, out.xyz_ref,
+                                         out.score_src, out.score_ref, batch.transform_gt,
+                                         loss_cfg, group)
+            else:
+                if batch.labels_src is None or batch.labels_ref is None:
+                    raise ValueError("the label loss needs labels_src and labels_ref")
+                loss_s, acc_s = semantic_loss(out.logits_src, batch.labels_src, group)
+                loss_r, acc_r = semantic_loss(out.logits_ref, batch.labels_ref, group)
+                loss, acc = loss_s + loss_r, (acc_s + acc_r) / 2
         return loss, {"loss": loss, "acc": acc, "invalid": invalid}
     opts = ForwardOptions(num_iter=model.cfg.num_train_reg_iter)
-    out = model.forward_align(batch, opts, train=True, generator=generator, group=group)
-    use_lists = batch.matches is not None
-    terms = scan_alignment_loss(out.transforms, out.inlier_logits, out.pred_idx, out.pt_src,
-                                batch.transform_gt, batch.matches, loss_cfg,
-                                pt_ref=None if use_lists else out.pt_ref,
-                                mask_src=batch.mask_src, group=group)
-    total = terms.pop("total")
-    return total, {"loss": total, "invalid": out.invalid.any(), "losses": terms,
+    with span("deepsir.train.forward"):
+        out = model.forward_align(batch, opts, train=True, generator=generator, group=group)
+    with span("deepsir.train.loss"):
+        use_lists = batch.matches is not None
+        terms = scan_alignment_loss(out.transforms, out.inlier_logits, out.pred_idx,
+                                    out.pt_src, batch.transform_gt, batch.matches, loss_cfg,
+                                    pt_ref=None if use_lists else out.pt_ref,
+                                    mask_src=batch.mask_src, group=group)
+        total = terms.pop("total")
+        invalid = out.invalid.any()
+    return total, {"loss": total, "invalid": invalid, "losses": terms,
                    "pred_idx": out.pred_idx}
 
 
@@ -188,26 +196,29 @@ def train_step(model: Network, optimizer: torch.optim.Optimizer, cfgs: RunConfig
     optimizer.zero_grad(set_to_none=True)
     loss, aux = compute_loss(model, cfgs.loss, batch, generator,
                              None if mesh is None else mesh.data_group)
-    loss.backward()
     named = trainable_parameters(model)
-    if mesh is not None:
-        _reduce_grads([p.grad for _, p in named if p.grad is not None], mesh)
-        aux = _global_aux(aux, mesh.data_group)
-        loss = aux["loss"]
-    ok = torch.isfinite(loss.detach()) & ~aux["invalid"]
-    for _, p in named:
-        if p.grad is not None:
-            ok = ok & torch.isfinite(p.grad).all()
-    if mesh is not None:
-        # one rank's non-finite grad or failed solve skips the step everywhere
-        ok = ok.to(torch.int32)
-        dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=mesh.group)
-    applied = bool(ok)                                  # the step's one host read
+    with span("deepsir.train.backward"):
+        loss.backward()
+        if mesh is not None:
+            _reduce_grads([p.grad for _, p in named if p.grad is not None], mesh)
+            aux = _global_aux(aux, mesh.data_group)
+            loss = aux["loss"]
+    with span("deepsir.train.guard"):
+        ok = torch.isfinite(loss.detach()) & ~aux["invalid"]
+        for _, p in named:
+            if p.grad is not None:
+                ok = ok & torch.isfinite(p.grad).all()
+        if mesh is not None:
+            # one rank's non-finite grad or failed solve skips the step everywhere
+            ok = ok.to(torch.int32)
+            dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=mesh.group)
+        applied = bool(ok)                              # the step's one host read
     lr = lr_at(adam_count(optimizer), cfgs.train, steps_per_epoch)
     if applied:
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.step()
+        with span("deepsir.train.optimizer"):
+            for group in optimizer.param_groups:
+                group["lr"] = lr
+            optimizer.step()
     out = {k: v.detach() for k, v in aux.items() if k != "losses"}
     if "losses" in aux:
         out["losses"] = {k: v.detach() for k, v in aux["losses"].items()}
