@@ -46,8 +46,11 @@ forward and resumed training step at 1024 points
 configs (feat: circle_loss_tile 1500) the forward (`training.forward_step`)
 and a training step against the plain kernels, the forward timed, four
 training steps at dropout 0.5 (label: random labels; feat: rigid pairs),
-K1 16 times per forward and per step, and a checkpoint round trip; and the
-"stages" phase: `utils.checkpoint.partial_restore` label -> feat -> align
+K1 16 times per forward and per step, and a checkpoint round trip (feat:
+the step's gradients with the circle-loss kernel against its plain loop as
+the benchmark measures `grad_gap`, the kernel against that loop at 18000 x
+18000 x 64 on jittered points, exact duplicates and every pair in radius,
+and both timed); and the "stages" phase: `utils.checkpoint.partial_restore` label -> feat -> align
 on the card with JAX's leaf counts; and the eval harness ("eval" phase):
 each refiner on JAX's own inputs against its float64 references and float32
 results, the staged align checkpoint on the 8 checkpoint pairs at 1024
@@ -132,7 +135,7 @@ N_ITERS = 5
 CLI_POINTS = 1024        # the tracked staged commands' --num_points
 FEAT_LEN = 4
 TIMED_REPS = 3
-KERNEL_SOURCES = ("knn_topk", "match_argmin", "match_bidir", "knn_windowed")
+KERNEL_SOURCES = ("knn_topk", "match_argmin", "match_bidir", "knn_windowed", "circle_loss")
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_FP32_FLOPS = 67e12          # CUDA cores
@@ -149,25 +152,26 @@ BF16 = dict(compute_dtype="bfloat16")
 PPF = dict(use_ppf=True, feat_len=6)
 # path -> (ModelConfig options, or the run whose config.json gives them;
 # ForwardOptions.refine_stride; launches per batch of K1, K4, K2, K3, all
-# forms; launches per batch of K2, K3 in the bf16 form)
+# forms, and of the circle loss; launches per batch of K2, K3 in the bf16 form)
 PATHS = {
-    "default": ({}, 1, (16, 0, 5, 0), (0, 0)),
-    "F": (FLAGSHIP, 1, (16, 0, 0, 5), (0, 0)),
-    "F+gate": (dict(FLAGSHIP, mutual_check=True, mutual_check_tol=0.6), 1, (16, 0, 0, 5),
+    "default": ({}, 1, (16, 0, 5, 0, 0), (0, 0)),
+    "F": (FLAGSHIP, 1, (16, 0, 0, 5, 0), (0, 0)),
+    "F+gate": (dict(FLAGSHIP, mutual_check=True, mutual_check_tol=0.6), 1, (16, 0, 0, 5, 0),
                (0, 0)),
-    "M": (dict(pyramid_order="morton", knn_window_halo=1), 1, (10, 6, 5, 0), (0, 0)),
-    "D": (DEPLOY, 1, (16, 0, 5, 0), (0, 0)),
-    "flag": (FLAG_RUN, 1, (16, 0, 0, 5), (0, 0)),
-    "R": ({}, 4, (24, 0, 5, 0), (0, 0)),
-    "B16": (BF16, 1, (16, 0, 5, 0), (5, 0)),
-    "B16F": (dict(FLAGSHIP, **BF16), 1, (16, 0, 0, 5), (0, 5)),
-    "I16": (dict(inlier_compute_dtype="bfloat16"), 1, (16, 0, 5, 0), (0, 0)),
-    "PPF": (PPF, 1, (16, 0, 5, 0), (0, 0)),
+    "M": (dict(pyramid_order="morton", knn_window_halo=1), 1, (10, 6, 5, 0, 0), (0, 0)),
+    "D": (DEPLOY, 1, (16, 0, 5, 0, 0), (0, 0)),
+    "flag": (FLAG_RUN, 1, (16, 0, 0, 5, 0), (0, 0)),
+    "R": ({}, 4, (24, 0, 5, 0, 0), (0, 0)),
+    "B16": (BF16, 1, (16, 0, 5, 0, 0), (5, 0)),
+    "B16F": (dict(FLAGSHIP, **BF16), 1, (16, 0, 0, 5, 0), (0, 5)),
+    "I16": (dict(inlier_compute_dtype="bfloat16"), 1, (16, 0, 5, 0, 0), (0, 0)),
+    "PPF": (PPF, 1, (16, 0, 5, 0, 0), (0, 0)),
 }
 RUNS = (("default", 1), ("default", 2), ("F", 1), ("F", 2), ("F+gate", 1),
         ("M", 1), ("M", 2), ("D", 1), ("D", 2), ("flag", 1), ("R", 1),
         ("B16", 1), ("B16", 2), ("B16F", 1), ("I16", 1), ("PPF", 1))
-COUNTED = ("knn_topk", "knn_topk_windowed", "match_argmin", "match_argmin_bidirectional")
+COUNTED = ("knn_topk", "knn_topk_windowed", "match_argmin", "match_argmin_bidirectional",
+           "circle_rows")
 # the eval harness's refiner settings (EvalConfig fields) held against JAX
 EVAL_SETTINGS = {
     "none": {},
@@ -178,7 +182,7 @@ EVAL_SETTINGS = {
     "all": {"use_finetune": True, "pose_average_last": 3, "use_icp": True, "use_ransac": True},
     "float16": {"transfer_dtype": "float16"},
 }
-LP_COUNTED = COUNTED[2:]          # these also count their bf16-form launches
+LP_COUNTED = COUNTED[2:4]         # these also count their bf16-form launches
 
 
 def log(msg: str) -> None:
@@ -262,10 +266,11 @@ def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
 
 def kernels():
     """The port's kernel wrappers by name; each counts its launches."""
+    from deepsir_tpu_torch.ops.cuda_circle import circle_rows
     from deepsir_tpu_torch.ops.cuda_knn import knn_topk, knn_topk_windowed
     from deepsir_tpu_torch.ops.cuda_match import match_argmin, match_argmin_bidirectional
     return dict(zip(COUNTED, (knn_topk, knn_topk_windowed, match_argmin,
-                              match_argmin_bidirectional)))
+                              match_argmin_bidirectional, circle_rows)))
 
 
 def reset_counts(counted) -> None:
@@ -800,7 +805,7 @@ def expected_launches(cfg, refine_stride: int = 1):
         full, win = full + sub[0], win + sub[1]
     both = cfg.mutual_check or "recip" in inlier_extras(cfg)
     return dict(zip(COUNTED, (full, win, 0 if both else cfg.num_reg_iter,
-                              cfg.num_reg_iter if both else 0)))
+                              cfg.num_reg_iter if both else 0, 0)))
 
 
 def expected_bf16_launches(cfg, refine_stride: int = 1):
@@ -1014,14 +1019,16 @@ def plain_kernels():
     PyTorch version, which runs on the card's tensors too."""
     import importlib
     from unittest import mock
-    from deepsir_tpu_torch.ops import cuda_knn, cuda_match, distance
+    from deepsir_tpu_torch.losses import detdes
+    from deepsir_tpu_torch.ops import cuda_circle, cuda_knn, cuda_match, distance
     # the module: the package exports the function `knn` under its name
     knn = importlib.import_module("deepsir_tpu_torch.ops.knn")
     with mock.patch.object(knn, "knn_topk", cuda_knn.knn_topk_plain), \
             mock.patch.object(knn, "knn_topk_windowed", cuda_knn.knn_topk_windowed_plain), \
             mock.patch.object(distance, "match_argmin", cuda_match.match_argmin_plain), \
             mock.patch.object(distance, "match_argmin_bidirectional",
-                              cuda_match.match_argmin_bidirectional_plain):
+                              cuda_match.match_argmin_bidirectional_plain), \
+            mock.patch.object(detdes, "circle_rows", cuda_circle.circle_rows_plain):
         yield
 
 
@@ -1170,7 +1177,8 @@ def check_checkpoint(torch, dev):
 TRAIN_FIXTURE = ROOT / "tests" / "data" / "torch_parity_train.npz"
 TRAIN_STEPS = 4                   # full-width steps per case: one warm-up, three timed
 # full-width training cases: ModelConfig options, launches per step of K1, K4, K2, K3
-TRAIN_CASES = {"default": ({}, (16, 0, 2, 0)), "F": (FLAGSHIP, (16, 0, 0, 2))}
+# and the circle loss
+TRAIN_CASES = {"default": ({}, (16, 0, 2, 0, 0)), "F": (FLAGSHIP, (16, 0, 0, 2, 0))}
 TRAIN_THRES_RADIUS = 0.9          # deepsir_tpu/config.py:DataConfig: voxel 0.3 x 3
 # a stored leaf above this many entries is summarised (the fixture's size)
 SUMMARY_ENTRIES = 4096
@@ -1434,10 +1442,11 @@ def _search_near_ties(torch, qry, cand, idx, pidx, low_precision=False):
     return rec
 
 
-def _runs_against_plain(torch, model, cfgs, arrays, dev, seed, forward=False):
+def _runs_against_plain(torch, model, cfgs, arrays, dev, seed, forward=False,
+                        swap=plain_kernels):
     """One training forward + backward (`compute_loss`) with the kernels and
-    again with every kernel swapped for its plain version, from the same
-    params and dropout seed; with `forward`, first the inference
+    again under `swap` (every kernel swapped for its plain version), from
+    the same params and dropout seed; with `forward`, first the inference
     `forward_pair` under no_grad. Returns a dict per run (kernels, plain):
     "batch", "out", "loss", "aux" and "grads" of the trained leaves."""
     from deepsir_tpu_torch.training import compute_loss, device_batch
@@ -1445,7 +1454,7 @@ def _runs_against_plain(torch, model, cfgs, arrays, dev, seed, forward=False):
     runs = []
     for plain in (False, True):
         gen = torch.Generator(device=dev).manual_seed(seed)
-        with plain_kernels() if plain else nullcontext():
+        with swap() if plain else nullcontext():
             batch = device_batch(cfgs.model, arrays, device=dev)
             out = None
             if forward:
@@ -1648,6 +1657,9 @@ STAGE_STEPS_PER_EPOCH = 32        # the staged runs: 256 synthetic pairs in batc
 FEAT_TILE = 1500                  # circle_loss_tile of the full-width feat step
 STAGE_STEPS = 4                   # full-width steps per pipeline: one warm-up, three timed
 K1_PER_BATCH = 16                 # both clouds' pyramids, 4 levels
+# circle-loss launches per full-width step (forward and backward: the feat
+# loss runs the kernel, FEAT_TILE > 0)
+CIRCLE_PER_STEP = {"label": 0, "feat": 2}
 
 
 def stage_config(pipeline: str, num_points: int, **model):
@@ -1827,6 +1839,42 @@ def stage_against_plain(torch, model, cfgs, arrays, dev):
     return rec
 
 
+@contextmanager
+def plain_circle():
+    """The circle-loss kernel alone replaced by its plain tile loop."""
+    from unittest import mock
+    from deepsir_tpu_torch.losses import detdes
+    from deepsir_tpu_torch.ops import cuda_circle
+    with mock.patch.object(detdes, "circle_rows", cuda_circle.circle_rows_plain):
+        yield
+
+
+def circle_step_against_plain(torch, model, cfgs, arrays, dev) -> dict:
+    """One feat training forward + backward with the circle-loss kernel and
+    again with it alone swapped for its plain tile loop (the same params and
+    dropout seed, every other kernel as it is), held as the benchmark holds
+    the feat cell's `grad_gap`: each trained leaf's gradient norm gap over
+    the larger of the plain run's norm and the median leaf's, the worst
+    leaf, within CIRCLE_STEP_GRAD_GAP; the loss within 1e-6 relative. The
+    kernel's backward hands each column tile to the cuBLAS products autograd
+    runs on the plain loop, and the heads' gradients keep within the cell's
+    limit only while those products round as they do there: a library that
+    reduces them otherwise fails here. Returns the record."""
+    k, p = _runs_against_plain(torch, model, cfgs, arrays, dev, seed=4, swap=plain_circle)
+    norms = [{n: float(g.double().norm()) for n, g in r["grads"].items()} for r in (k, p)]
+    floor = float(np.median(list(norms[1].values())))
+    rec = {"loss": k["loss"], "plain_loss": p["loss"],
+           "loss_rel_err": abs(k["loss"] - p["loss"]) / abs(p["loss"]),
+           "grad_norm_gap": max(abs(norms[0][n] - w) / max(w, floor, 1e-30)
+                                for n, w in norms[1].items()),
+           "grad_rel_err": _grads_agree(k["grads"], p["grads"], 1e-3)}
+    if rec["loss_rel_err"] > 1e-6 or rec["grad_norm_gap"] > CIRCLE_STEP_GRAD_GAP:
+        raise AssertionError(f"feat step, circle-loss kernel against its plain loop: {rec}")
+    log(f"feat step at {N_POINTS} points, circle-loss kernel against its plain loop: "
+        f"{json.dumps(rec)}")
+    return rec
+
+
 def stage_full_width(torch, dev, pipeline: str):
     """A staged checkpoint at full width (N_POINTS, B=1) under its run
     config: the forward and a step's grads against the plain kernels;
@@ -1846,6 +1894,8 @@ def stage_full_width(torch, dev, pipeline: str):
     rng = np.random.default_rng(0)
     feeds = [stage_arrays(rng, pipeline, cfgs.model.feat_len) for _ in range(STAGE_STEPS)]
     vs_plain = stage_against_plain(torch, model, cfgs, feeds[0], dev)
+    if pipeline == "feat":
+        vs_plain["circle_only"] = circle_step_against_plain(torch, model, cfgs, feeds[0], dev)
 
     counted = kernels()
     total = dict.fromkeys(COUNTED, 0)
@@ -1860,7 +1910,7 @@ def stage_full_width(torch, dev, pipeline: str):
         torch.cuda.synchronize()
         fwd_ms.append((time.perf_counter() - t0) * 1e3)
         launches, _ = read_counts(counted)
-        if launches != dict(zip(COUNTED, (K1_PER_BATCH, 0, 0, 0))):
+        if launches != dict(zip(COUNTED, (K1_PER_BATCH, 0, 0, 0, 0))):
             raise AssertionError(f"{pipeline} forward: launches {launches}")
         for key, n in launches.items():
             total[key] += n
@@ -1879,7 +1929,7 @@ def stage_full_width(torch, dev, pipeline: str):
     gen = torch.Generator(device=dev).manual_seed(0)
     launches, step_ms, losses, step_peak = timed_steps(
         torch, dev, pipeline, model, opt, cfgs, feeds, gen, STAGE_STEPS_PER_EPOCH,
-        (K1_PER_BATCH, 0, 0, 0))
+        (K1_PER_BATCH, 0, 0, 0, CIRCLE_PER_STEP[pipeline]))
     for key, n in launches.items():
         total[key] += n
 
@@ -1902,12 +1952,167 @@ def stage_full_width(torch, dev, pipeline: str):
     return total, record
 
 
+CIRCLE_BATCHES = (1, 2)           # the circle-loss kernel against its plain version
+CIRCLE_GRAPH_CALLS = 5            # kernel calls a CUDA graph (the plain loop: 1)
+CIRCLE_CHANNELS = 64              # the descriptors' width (ModelConfig.out_feat_dim)
+CIRCLE_FAR = 64                   # anchors moved out of reach in the "duplicates" case
+# the cases of `circle_inputs` and their radii: "all_in_radius" holds every
+# pair of two clouds of normal x 10 points
+CIRCLE_CASES = {"jittered": TRAIN_THRES_RADIUS, "duplicates": TRAIN_THRES_RADIUS,
+                "all_in_radius": 1000.0}
+# the feat step's gradient norms, kernel against the plain loop: a tenth of
+# the feat cell's `grad_gap` limit (1e-5, benchmark/limits)
+CIRCLE_STEP_GRAD_GAP = 1e-6
+
+
+def circle_inputs(torch, dev, batch: int, seed: int, case: str = "jittered"):
+    """Descriptors and points as the feat step hands them to the circle
+    loss: clouds of N_POINTS normal x 10, positives the anchors moved by
+    noise 0.02 and permuted, unit descriptors correlated with their
+    anchors', scores uniform. "duplicates": every other positive an exact
+    copy of its anchor (rows with a positive, so the detector's max over
+    positives and its gradient), the last CIRCLE_FAR anchors then moved out
+    of reach (rows with no pair in radius); "all_in_radius": the same
+    copies, at CIRCLE_CASES' radius, where a row without a copy takes the
+    nearest positive by its real distance. (anc, pos, anc_pc, pos_pc,
+    score) on `dev`."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (batch, N_POINTS)
+    anc_pc = torch.randn(shape + (3,), device=dev, generator=g) * 10.0
+    perm = torch.randperm(N_POINTS, device=dev, generator=g)
+    noise = 0.02 * torch.randn(shape + (3,), device=dev, generator=g)
+    if case != "jittered":
+        noise[:, ::2] = 0.0
+    pos_pc = anc_pc[:, perm] + noise
+    if case == "duplicates":
+        anc_pc[:, N_POINTS - CIRCLE_FAR:] += 1000.0
+    unit = torch.nn.functional.normalize
+    anc = unit(torch.randn(shape + (CIRCLE_CHANNELS,), device=dev, generator=g), dim=-1)
+    pos = unit(anc[:, perm] + 0.7 * torch.randn(shape + (CIRCLE_CHANNELS,), device=dev,
+                                                generator=g), dim=-1)
+    return anc, pos, anc_pc, pos_pc, torch.rand(shape, device=dev, generator=g)
+
+
+def circle_against_plain(torch, dev, batch: int, seed: int = 0, case: str = "jittered") -> dict:
+    """`circle_loss_tiled` at N_POINTS x N_POINTS x 64 on `circle_inputs`'
+    `case` through the kernel, twice, and through its plain tile loop: the
+    rows within 1e-6 of each one's largest magnitude (has_pos equal), the
+    loss within 1e-6 relative, d anc and d pos within 1e-5 of each one's
+    largest magnitude, the kernel's two runs bit-equal (it uses no float
+    atomics), two launches a run. "duplicates" must have rows with a
+    positive, rows in reach without one and rows out of reach;
+    "all_in_radius" a positive on every row. Returns the gaps and the rows'
+    counts."""
+    from unittest import mock
+    from deepsir_tpu_torch.losses import detdes
+    from deepsir_tpu_torch.ops import cuda_circle
+    inputs = circle_inputs(torch, dev, batch, seed, case)
+    radius = CIRCLE_CASES[case]
+
+    def run(rows_fn):
+        a, p = (x.clone().requires_grad_(True) for x in inputs[:2])
+        kept = {}
+
+        def keep(*args, **kw):
+            out = rows_fn(*args, **kw)
+            kept["rows"] = [t.detach().clone() for t in out]
+            return out
+        with mock.patch.object(detdes, "circle_rows", keep):
+            lf, ld, _ = detdes.circle_loss_tiled(a, p, *inputs[2:], radius, tile=FEAT_TILE)
+        (lf + ld).backward()
+        torch.cuda.synchronize()
+        return kept["rows"], float((lf + ld).detach()), a.grad, p.grad
+
+    before = cuda_circle.circle_rows.launches
+    first, second = run(cuda_circle.circle_rows), run(cuda_circle.circle_rows)
+    if cuda_circle.circle_rows.launches != before + 4:
+        raise AssertionError(f"circle {case} B={batch}: launches "
+                             f"{cuda_circle.circle_rows.launches - before}, expected 4")
+    plain = run(cuda_circle.circle_rows_plain)
+    for x, y in zip(first[0] + list(first[2:]), second[0] + list(second[2:])):
+        if not torch.equal(x, y):
+            raise AssertionError(f"circle {case} B={batch}: two kernel runs differ")
+    names = ("lse_p", "lse_n", "furthest", "closest", "has_pos", "lse_neg_col")
+    # a row has a positive where its furthest positive lies at a distance > 0
+    with_pos = int((plain[0][2] > 0).sum())
+    rec = {"case": case, "batch": batch, "points": N_POINTS, "radius": radius,
+           "rows_with_positive": with_pos, "rows_in_reach": int(plain[0][4].sum()),
+           "loss": first[1], "plain_loss": plain[1],
+           "loss_rel_err": abs(first[1] - plain[1]) / abs(plain[1]),
+           "d_anc_err": _scaled_err(torch, first[2], plain[2]),
+           "d_pos_err": _scaled_err(torch, first[3], plain[3]), "bit_equal_runs": True}
+    for name, x, y in zip(names, first[0], plain[0]):
+        rec[f"{name}_err"] = (float((x != y).sum()) if x.dtype == torch.bool
+                              else _scaled_err(torch, x, y))
+    rows, reach = batch * N_POINTS, rec["rows_in_reach"]
+    covered = {"jittered": True, "duplicates": 0 < with_pos < reach < rows,
+               "all_in_radius": with_pos == reach == rows}[case]
+    if (not covered or rec["has_pos_err"] or rec["loss_rel_err"] > 1e-6
+            or rec["d_anc_err"] > 1e-5 or rec["d_pos_err"] > 1e-5
+            or max(rec[f"{n}_err"] for n in names if n != "has_pos") > 1e-6):
+        raise AssertionError(f"circle {case} B={batch} against plain: {rec}")
+    log(f"circle loss kernel against plain, {case} B={batch}: {json.dumps(rec)}")
+    return rec
+
+
+def check_circle(torch, dev) -> dict:
+    """The circle-loss kernel in the "feat" phase: `circle_against_plain` at
+    each of CIRCLE_BATCHES, then at B=1 the forward (the rows) and the
+    forward + backward (the rows' gradients into both descriptor sets) each
+    captured once into a CUDA graph, kernel and plain tile loop replayed in
+    turns, beside the bound: one (N x N x 64) product in the forward and
+    three in the backward (the distances again and the two reductions), at
+    the fp32-grade peak of K2 and K3 (three TF32 products on the tensor
+    cores), the fp32 CUDA cores' figure beside it. Returns the record."""
+    from deepsir_tpu_torch.ops.cuda_circle import circle_rows, circle_rows_plain
+    record = {"against_plain": [circle_against_plain(torch, dev, b, case=case)
+                                for case in CIRCLE_CASES for b in CIRCLE_BATCHES]}
+    anc, pos, anc_pc, pos_pc, _ = circle_inputs(torch, dev, 1, 1)
+    a, p = anc.clone().requires_grad_(True), pos.clone().requires_grad_(True)
+    rows = circle_rows(anc, pos, anc_pc, pos_pc, TRAIN_THRES_RADIUS)
+    grads = [torch.rand_like(rows[i]) for i in (0, 1, 2, 3, 5)]    # has_pos takes none
+
+    def forward(rows_fn):
+        return lambda: rows_fn(anc, pos, anc_pc, pos_pc, TRAIN_THRES_RADIUS, tile=FEAT_TILE)
+
+    def both(rows_fn):
+        def call():
+            rows = rows_fn(a, p, anc_pc, pos_pc, TRAIN_THRES_RADIUS, tile=FEAT_TILE)
+            torch.autograd.backward([rows[i] for i in (0, 1, 2, 3, 5)], grads)
+        return call
+    fwd_ms, plain_fwd_ms, fwd_runs = _graph_in_turns(forward(circle_rows),
+                                                     forward(circle_rows_plain),
+                                                     CIRCLE_GRAPH_CALLS, 1)
+    both_ms, plain_both_ms, both_runs = _graph_in_turns(both(circle_rows), both(circle_rows_plain),
+                                                        CIRCLE_GRAPH_CALLS, 1)
+    flops = 2.0 * N_POINTS * N_POINTS * CIRCLE_CHANNELS
+    nbytes_in = 2 * N_POINTS * (CIRCLE_CHANNELS + 3) * 4
+    fwd_bytes = nbytes_in + 6 * N_POINTS * 4
+    bwd_bytes = nbytes_in + 2 * N_POINTS * (CIRCLE_CHANNELS + 3) * 4
+    products, peak = FORMS["fp32x3"][1:]
+    fwd_bound, fwd_by = bound_ms(products * flops, fwd_bytes, peak)
+    bwd_bound, bwd_by = bound_ms(products * 3 * flops, bwd_bytes, peak)
+    record.update(
+        shape=f"{N_POINTS} x {N_POINTS} x {CIRCLE_CHANNELS}, B=1",
+        forward_ms=fwd_ms, backward_ms=both_ms - fwd_ms, plain_forward_ms=plain_fwd_ms,
+        plain_backward_ms=plain_both_ms - plain_fwd_ms, bound_forward_ms=fwd_bound,
+        bound_forward_by=fwd_by, bound_backward_ms=bwd_bound, bound_backward_by=bwd_by,
+        bound_fp32_cores_ms=[bound_ms(flops, fwd_bytes)[0], bound_ms(3 * flops, bwd_bytes)[0]],
+        forward_runs=fwd_runs, forward_backward_runs=both_runs)
+    log(f"circle loss kernel at {record['shape']}: forward {fwd_ms:.4f} ms (plain "
+        f"{plain_fwd_ms:.3f}, bound {fwd_bound:.4f} by {fwd_by}), backward "
+        f"{record['backward_ms']:.4f} ms (plain {record['plain_backward_ms']:.3f}, bound "
+        f"{bwd_bound:.4f} by {bwd_by}); fp32 CUDA cores' bounds {record['bound_fp32_cores_ms']}")
+    return record
+
+
 def check_stage(torch, dev, pipeline: str):
     """The "label" or "feat" phase: the checkpoint's leaves, parity with JAX
     at 1024 points (card gates: forward 1e-4, loss 1e-4, grads and params
     1e-3 of each leaf's scale; K1 16 times in the forward and 16 in the
-    step), and the full-width run. Returns (launches of the parity and
-    full-width forwards and steps, record)."""
+    step), the full-width run (feat: the circle-loss kernel twice a step)
+    and, in the feat phase, `check_circle`. Returns (launches of the parity
+    and full-width forwards and steps, record)."""
     from deepsir_tpu_torch.utils.checkpoint import read_params
     leaves = []
 
@@ -1922,12 +2127,16 @@ def check_stage(torch, dev, pipeline: str):
         raise AssertionError(f"{pipeline} checkpoint: {got} (leaves, params)")
     launches, parity = stage_parity(torch, dev, pipeline, fwd_tol=1e-4, loss_rtol=1e-4,
                                     grad_rtol=1e-3, param_rtol=1e-3)
-    if launches != dict(zip(COUNTED, (2 * K1_PER_BATCH, 0, 0, 0))):
+    if launches != dict(zip(COUNTED, (2 * K1_PER_BATCH, 0, 0, 0, 0))):
         raise AssertionError(f"{pipeline} parity: launches {launches}")
     full_launches, full = stage_full_width(torch, dev, pipeline)
     launches = {k: n + full_launches[k] for k, n in launches.items()}
-    return launches, {"checkpoint": {"leaves": got[0], "params": got[1], "decode_s": decode_s},
-                      "parity": parity, "full_width": full}
+    record = {"checkpoint": {"leaves": got[0], "params": got[1], "decode_s": decode_s},
+              "parity": parity, "full_width": full}
+    if pipeline == "feat":
+        record["circle"] = check_circle(torch, dev)
+        record["circle"]["launches_per_step"] = full["launches"]["circle_rows"] / full["steps"]
+    return launches, record
 
 
 def check_stages(torch, dev):
@@ -3445,7 +3654,7 @@ def _util_descriptors(torch, dev, arrays, n: int):
 
 def _util_counted(torch, dev, counted, what, fn, want):
     """fn() with the counts set to 0 just before and read just after; its
-    launches must be `want` (K1, K4, K2, K3) on the card. Returns (result,
+    launches must be `want` (K1, K4, K2, K3, the circle loss) on the card. Returns (result,
     launches, host-clock ms of the call)."""
     if counted is not None:
         torch.cuda.synchronize()
@@ -3485,7 +3694,7 @@ def util_ransac(torch, dev, src, ref, fs, fr, counted):
         return ransac_feature_matching(src, ref, fs, fr, UTIL_RANSAC_DIST, UTIL_HYPOTHESES,
                                        generator=seeded())
     (t, frac), launches, ms = _util_counted(torch, dev, counted, "ransac_feature_matching",
-                                            call, (0, 0, 1, 0))
+                                            call, (0, 0, 1, 0, 0))
     with plain_kernels():
         (t_p, frac_p), plain_ms = _timed_call(torch, dev, call)
     idx, pidx = match_argmin(fs[None], fr[None]), match_argmin_plain(fs[None], fr[None])
@@ -3521,7 +3730,7 @@ def util_radius(torch, dev, src, ref, gt, counted):
     def call():
         return radius_matches(src, ref, gt, UTIL_RADIUS, UTIL_K, UTIL_CAPACITY)
     (pairs, num), launches, ms = _util_counted(torch, dev, counted, "radius_matches", call,
-                                               (1, 0, 0, 0))
+                                               (1, 0, 0, 0, 0))
     with plain_kernels():
         (p_pairs, p_num), plain_ms = _timed_call(torch, dev, call)
     q, r = se3.transform(gt, src)[None].contiguous(), ref[None].contiguous()
@@ -3722,7 +3931,7 @@ def check_utilities(torch, dev, smi: str = "", n: int = N_POINTS):
     gt = torch.as_tensor(arrays["transform_gt"][0], device=dev)
     (fs, fr), total, forward_ms = _util_counted(
         torch, dev, counted, "feat forward", lambda: _util_descriptors(torch, dev, arrays, n),
-        (K1_PER_BATCH, 0, 0, 0))
+        (K1_PER_BATCH, 0, 0, 0, 0))
     launches, ransac = util_ransac(torch, dev, src[:, :3], ref[:, :3], fs, fr, counted)
     for key in COUNTED:
         total[key] += launches[key]
@@ -3883,7 +4092,9 @@ def main() -> int:
     for entry, key in zip((k2, k3), LP_COUNTED):
         entry["forms"]["bf16"]["launches"] = total_lp[key]
         entry["forms"]["fp32x3"]["launches"] = total[key] - total_lp[key]
-    log(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    circle = {"name": "circle_rows", "launches": total["circle_rows"],
+              **{k: v for k, v in stages["feat"]["circle"].items() if k != "against_plain"}}
+    log(json.dumps({"kernels": [k1, k2, k3, k4, circle]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -31,24 +31,15 @@ import torch
 
 from deepsir_tpu_torch.config import LossConfig
 from deepsir_tpu_torch.math import se3
-from deepsir_tpu_torch.ops.distance import square_distance
+from deepsir_tpu_torch.ops.cuda_circle import (BIG as _BIG, EPS as _EPS, circle_rows,
+                                               dist_feat as _dist_feat, dist_pc as _dist_pc,
+                                               largest_divisor as _largest_divisor)
 from deepsir_tpu_torch.utils.collectives import (ProcessGroup, global_mean, global_sum,
                                                  share_mean)
-
-_BIG = 1e5
-_EPS = 1e-12
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
-
-
-def _dist_pc(anc_pc: torch.Tensor, pos_pc: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.vector_norm(anc_pc[..., :, None, :] - pos_pc[..., None, :, :], dim=-1)
-
-
-def _dist_feat(anc_feat: torch.Tensor, pos_feat: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.clamp_min(square_distance(anc_feat, pos_feat), 0.0) + _EPS)
 
 
 def _detector(diff, has_pos, score, overlap_det_mask: bool, dim, group: ProcessGroup = None):
@@ -119,13 +110,6 @@ def circle_loss(anc_feat: torch.Tensor, pos_feat: torch.Tensor,
     return loss_feat, loss_det, acc
 
 
-def _largest_divisor(n: int, tile: int) -> int:
-    t = max(1, min(tile, n))
-    while n % t:
-        t -= 1
-    return t
-
-
 def circle_loss_tiled(anc_feat: torch.Tensor, pos_feat: torch.Tensor,
                       anc_pc: torch.Tensor, pos_pc: torch.Tensor,
                       anc_score: torch.Tensor, thres_radius: float,
@@ -133,58 +117,19 @@ def circle_loss_tiled(anc_feat: torch.Tensor, pos_feat: torch.Tensor,
                       neg_margin: float = 1.4, overlap_det_mask: bool = False,
                       tile: int = 1500, group: ProcessGroup = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """`circle_loss` over column tiles of `tile` positives, never holding a
-    whole (N1, N2) matrix at once.
-
-    `tile` is clamped to the largest divisor of N2 (padded columns would
-    still add exp(0) to the excluded entries). Two passes over the tiles:
-    the first takes the row min of the zeroed point distances, which the
-    positive mask needs whole; the second accumulates the row logsumexps by
-    `logaddexp`, the detector's row max and min and `any`, and emits the
-    column logsumexp of each tile. As in the JAX package, each batch
-    element's losses and accuracy are taken on their own and then averaged
-    (over a data-parallel `group`, as `circle_loss` does).
+    """`circle_loss` without a whole (N1, N2) matrix: the row and column
+    reductions come from `ops.cuda_circle.circle_rows`, which streams
+    columns in tiles of `tile` positives (clamped to the largest divisor of
+    N2: padded columns would still add exp(0) to the excluded entries), on
+    the CPU in plain PyTorch and on the card through its kernel. As in the
+    JAX package, each batch element's losses and accuracy are taken on
+    their own and then averaged (over a data-parallel `group`, as
+    `circle_loss` does).
     """
-    t = _largest_divisor(pos_feat.shape[-2], tile)
     score = anc_score / (torch.sum(anc_score, dim=-1, keepdim=True) + _EPS)
-    tiles = list(zip(torch.split(pos_feat, t, dim=-2), torch.split(pos_pc, t, dim=-2)))
-
-    with torch.no_grad():
-        dist_min = torch.full(anc_feat.shape[:-1], float("inf"), device=anc_feat.device)
-        for _, pc in tiles:
-            dist_pc = _dist_pc(anc_pc, pc)
-            dist_min = torch.minimum(
-                dist_min, torch.amin(dist_pc * (dist_pc < thres_radius), dim=-1))
-
-    shape = anc_feat.shape[:-1]
-    lse_p = torch.full(shape, -float("inf"), device=anc_feat.device)
-    lse_n = torch.full(shape, -float("inf"), device=anc_feat.device)
-    furthest = torch.full(shape, -float("inf"), device=anc_feat.device)
-    closest = torch.full(shape, float("inf"), device=anc_feat.device)
-    has_pos = torch.zeros(shape, dtype=torch.bool, device=anc_feat.device)
-    cols = []
-    for pf, pc in tiles:
-        dist_pc = _dist_pc(anc_pc, pc)
-        dist_feat = _dist_feat(anc_feat, pf)
-        false_neg = dist_pc < thres_radius
-        pos_mask = dist_pc == dist_min[..., None]
-        neg_mask = ~(pos_mask | false_neg)
-
-        pos = dist_feat - _BIG * neg_mask
-        pos_w = torch.clamp_min(pos - pos_margin, 0.0).detach()
-        lse_p = torch.logaddexp(lse_p, torch.logsumexp(
-            log_scale * (pos - pos_margin) * pos_w, dim=-1))
-
-        neg = dist_feat + _BIG * (~neg_mask)
-        neg_w = torch.clamp_min(neg_margin - neg, 0.0).detach()
-        neg_weighted = log_scale * (neg_margin - neg) * neg_w
-        lse_n = torch.logaddexp(lse_n, torch.logsumexp(neg_weighted, dim=-1))
-        cols.append(torch.logsumexp(neg_weighted, dim=-2))
-
-        furthest = torch.maximum(furthest, torch.amax(dist_feat * pos_mask, dim=-1))
-        closest = torch.minimum(closest, torch.amin(dist_feat + _BIG * pos_mask, dim=-1))
-        has_pos = has_pos | torch.any(false_neg, dim=-1)
-    lse_neg_col = torch.cat(cols, dim=-1)
+    lse_p, lse_n, furthest, closest, has_pos, lse_neg_col = circle_rows(
+        anc_feat, pos_feat, anc_pc, pos_pc, thres_radius, log_scale, pos_margin, neg_margin,
+        tile)
 
     loss_col = softplus(lse_p + lse_n) / log_scale
     loss_row = softplus(lse_p + lse_neg_col) / log_scale
