@@ -2,8 +2,9 @@
 
 A copy of deepsir_tpu/config.py: `ModelConfig`, `DataConfig`, `LossConfig`,
 `TrainConfig`, `EvalConfig`, `ParallelConfig` and the top-level `Config`
-with `resolved()`, the same field names, order and defaults, so that a run's
-`config.json` (`dataclasses.asdict(cfg)`) is the JAX package's for the same
+with `resolved()`, the same field names, order and defaults, and after
+them ModelConfig's two fields of the port's own (`PORT_FIELDS`), so that a
+run's `config.json` (`config_dict(cfg)`) is the JAX package's for the same
 flags; and the flag parsers of the train and test commands with
 `config_from_args`. The port implements one slice of the model
 configuration space (`check_supported`); any other value of an option
@@ -82,7 +83,18 @@ class ModelConfig:
     # the JAX package's sinkhorn options, which nothing there reads either
     no_slack: bool = False
     num_sk_iter: int = 5
+    # the port's own options (PORT_FIELDS), which the JAX package lacks:
+    # the norm of every ConvUnit of the RandLA encoder and decoder, and the
+    # label network's head ("randla": RandLA-Net's fc1, fc2, dropout, fc)
+    randla_norm: str = "group"        # 'group' | 'batch'
+    label_head: str = "deepsir"       # 'deepsir' | 'randla' (label pipeline only)
 
+
+# ModelConfig's fields that the JAX package lacks, with their defaults: a
+# run's config.json leaves each out while it holds its default
+# (`config_dict`), so that it stays the JAX package's for the same flags
+PORT_FIELDS = {f.name: f.default for f in dataclasses.fields(ModelConfig)
+               if f.name in ("randla_norm", "label_head")}
 
 INLIER_EXTRAS = ("dist", "recip")
 COMPUTE_DTYPES = ("float32", "bfloat16")          # the JAX flags' choices
@@ -265,7 +277,7 @@ def _unported(name: str, value, ported: str) -> NotImplementedError:
                                f"(the port implements {ported})")
 
 
-def check_supported(cfg: ModelConfig) -> None:
+def check_supported(cfg: ModelConfig, pipeline: Optional[str] = None) -> None:
     """Raise NotImplementedError naming the first option outside the slice.
 
     Besides the defaults the port implements:
@@ -279,7 +291,11 @@ def check_supported(cfg: ModelConfig) -> None:
     - `pyramid_order="morton"` with `knn_window_halo >= 1`;
     - `inlier_num_layers` L with 0 <= L < len(d_out), `inlier_num_knn` and
       `backbone_num_knn` >= 0, `refine_stride` >= 1, `absolute_pose_solve`;
-    - `fc_norm` "group", "batch" or "none", `randla_skips` "pre" or "post".
+    - `fc_norm` "group", "batch" or "none", `randla_skips` "pre" or "post";
+    - `randla_norm` "group" or "batch" (the RandLA encoder's and decoder's
+      units; the heads follow `fc_norm`), `label_head` "deepsir" or
+      "randla", the latter under the label pipeline only: given a
+      `pipeline`, "randla" under another raises.
     """
     for name in ("compute_dtype", "inlier_compute_dtype"):
         if getattr(cfg, name) not in COMPUTE_DTYPES:
@@ -314,6 +330,13 @@ def check_supported(cfg: ModelConfig) -> None:
         raise _unported("fc_norm", cfg.fc_norm, "'group', 'batch' and 'none'")
     if cfg.randla_skips not in ("pre", "post"):
         raise _unported("randla_skips", cfg.randla_skips, "'pre' and 'post'")
+    if cfg.randla_norm not in ("group", "batch"):
+        raise _unported("randla_norm", cfg.randla_norm, "'group' and 'batch'")
+    if cfg.label_head not in ("deepsir", "randla"):
+        raise _unported("label_head", cfg.label_head, "'deepsir' and 'randla'")
+    if cfg.label_head == "randla" and pipeline not in (None, "label"):
+        raise _unported("label_head", cfg.label_head,
+                        f"label_head='randla' under the label pipeline only, not {pipeline!r}")
     if not 0.0 <= cfg.dropout_rate < 1.0:
         raise ValueError(f"dropout_rate={cfg.dropout_rate} outside [0, 1)")
     if len(cfg.sub_sampling_ratio) != len(cfg.d_out):
@@ -322,6 +345,17 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def replace(obj, **kw):
     return dataclasses.replace(obj, **kw)
+
+
+def config_dict(cfg: "Config") -> dict:
+    """`dataclasses.asdict(cfg)` without the model's `PORT_FIELDS` that hold
+    their defaults: what a run writes as `config.json`, the JAX package's
+    text for the same flags unless a port-only option is set."""
+    out = dataclasses.asdict(cfg)
+    for name, default in PORT_FIELDS.items():
+        if out["model"][name] == default:
+            del out["model"][name]
+    return out
 
 
 def _read_run(run: Union[str, os.PathLike, Mapping]) -> Mapping:
@@ -360,7 +394,7 @@ def from_run_config(run: Union[str, os.PathLike, Mapping]) -> ModelConfig:
     """
     run = _read_run(run)
     cfg = ModelConfig(**_known_fields(run["model"], ModelConfig, "model"))
-    check_supported(cfg)
+    check_supported(cfg, run["pipeline"])
     return cfg
 
 
@@ -439,6 +473,8 @@ def _add_net_arguments(p: argparse.ArgumentParser) -> None:
     p.add_argument("--d_out", type=int, nargs="+", default=[16, 64, 128, 256])
     p.add_argument("--randla_skips", type=str, default="pre", choices=["pre", "post"])
     p.add_argument("--fc_norm", type=str, default="group", choices=["group", "batch", "none"])
+    p.add_argument("--randla_norm", type=str, default="group", choices=["group", "batch"])
+    p.add_argument("--label_head", type=str, default="deepsir", choices=["deepsir", "randla"])
     p.add_argument("--out_feat_dim", type=int, default=64)
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])

@@ -148,10 +148,11 @@ class MLP(nn.Module):
 class AttPooling(nn.Module):
     """Attentive pooling over the neighbour axis: (..., N, K, C) -> (..., N, d_out)."""
 
-    def __init__(self, c_in: int, d_out: int, dtype: Optional[torch.dtype] = None):
+    def __init__(self, c_in: int, d_out: int, dtype: Optional[torch.dtype] = None,
+                 norm: str = "group"):
         super().__init__()
         self.dense = nn.Linear(c_in, c_in, bias=False)
-        self.unit = ConvUnit(c_in, d_out, dtype=dtype)
+        self.unit = ConvUnit(c_in, d_out, norm=norm, dtype=dtype)
         self.dtype = dtype
 
     def forward(self, feature_set: torch.Tensor) -> torch.Tensor:

@@ -144,7 +144,7 @@ class Network(nn.Module):
 
     def __init__(self, cfg: ModelConfig, pipeline: str = "align"):
         super().__init__()
-        check_supported(cfg)
+        check_supported(cfg, pipeline)
         if pipeline not in PIPELINES:
             raise ValueError(f"pipeline {pipeline!r} is not one of {PIPELINES}")
         self.cfg = cfg

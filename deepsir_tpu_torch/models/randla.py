@@ -15,6 +15,17 @@ of the global batch from a generator seeded alike and keeps its own rows,
 so that the ranks together draw what one device draws for the whole batch;
 the `fc_label` stack's batch norm then spans the group's batch too.
 
+Every unit of the encoder and decoder (`mlp_pre`, the blocks with their
+attentive poolings, `mlp_mid`, `dec`) takes `cfg.randla_norm`: GroupNorm,
+DeepSIR's MLP2D, or "batch", RandLA-Net's stateless batch norm over the
+whole call's batch; the heads take `cfg.fc_norm`. `cfg.label_head` picks
+the head: "deepsir" (`mlp_out`, dropout, `fc_label` 64 -> 64 -> 32 ->
+classes) or "randla", RandLA-Net's (Hu et al., CVPR 2020,
+`RandLANet.py::inference`): `fc1` 32 -> 64 and `fc2` 64 -> 32, each with
+its norm and LeakyReLU, dropout, then `fc` 32 -> classes with neither; its
+`feat` is fc2's 32-channel output. The forward opens the spans
+`deepsir.randla.encoder`, `.decoder` and `.head` around the three parts.
+
 `cfg.compute_dtype` sets the Dense layers' dtype (models/layers.py); the
 features and logits it returns are fp32. Under `cfg.use_ppf` the input
 is not the point features but their point-pair features
@@ -35,6 +46,7 @@ from deepsir_tpu_torch.ops.gather import (gather_neighbour, max_pool_neighbours,
                                           nearest_interpolate)
 from deepsir_tpu_torch.ops.pyramid import Pyramid
 from deepsir_tpu_torch.utils.collectives import ProcessGroup, group_rank, group_size
+from deepsir_tpu_torch.utils.profiling import span
 
 PosEnc = Tuple[torch.Tensor, torch.Tensor]
 
@@ -77,13 +89,13 @@ def ppf_grouping(xyz: torch.Tensor, normals: torch.Tensor,
 class BuildingBlock(nn.Module):
     """Local feature aggregation: LocSE + two attentive poolings."""
 
-    def __init__(self, d_out: int, dtype: Optional[torch.dtype] = None):
+    def __init__(self, d_out: int, dtype: Optional[torch.dtype] = None, norm: str = "group"):
         super().__init__()
         half = d_out // 2
-        self.mlp1 = ConvUnit(10, half, dtype=dtype)
-        self.att_pooling_1 = AttPooling(d_out, half, dtype=dtype)
-        self.mlp2 = ConvUnit(half, half, dtype=dtype)
-        self.att_pooling_2 = AttPooling(d_out, d_out, dtype=dtype)
+        self.mlp1 = ConvUnit(10, half, norm=norm, dtype=dtype)
+        self.att_pooling_1 = AttPooling(d_out, half, dtype=dtype, norm=norm)
+        self.mlp2 = ConvUnit(half, half, norm=norm, dtype=dtype)
+        self.att_pooling_2 = AttPooling(d_out, d_out, dtype=dtype, norm=norm)
 
     def pos_encode(self, xyz: torch.Tensor, neigh_idx: torch.Tensor) -> PosEnc:
         """The positional branch; mlp2 consumes mlp1's output (chained)."""
@@ -106,12 +118,13 @@ class BuildingBlock(nn.Module):
 
 
 class DilatedResBlock(nn.Module):
-    def __init__(self, c_in: int, d_out: int, dtype: Optional[torch.dtype] = None):
+    def __init__(self, c_in: int, d_out: int, dtype: Optional[torch.dtype] = None,
+                 norm: str = "group"):
         super().__init__()
-        self.mlp1 = ConvUnit(c_in, d_out // 2, dtype=dtype)
-        self.lfa = BuildingBlock(d_out, dtype)
-        self.mlp2 = ConvUnit(d_out, d_out * 2, use_act=False, dtype=dtype)
-        self.mlp_skip = ConvUnit(c_in, d_out * 2, use_act=False, dtype=dtype)
+        self.mlp1 = ConvUnit(c_in, d_out // 2, norm=norm, dtype=dtype)
+        self.lfa = BuildingBlock(d_out, dtype, norm)
+        self.mlp2 = ConvUnit(d_out, d_out * 2, use_act=False, norm=norm, dtype=dtype)
+        self.mlp_skip = ConvUnit(c_in, d_out * 2, use_act=False, norm=norm, dtype=dtype)
 
     def pos_encode(self, xyz, neigh_idx) -> PosEnc:
         return self.lfa.pos_encode(xyz, neigh_idx)
@@ -131,23 +144,30 @@ class RandLA(nn.Module):
         self.post_skips = cfg.randla_skips == "post"
         self.use_ppf = cfg.use_ppf
         self.dtype = dtype = compute_dtype(cfg.compute_dtype)
+        norm = cfg.randla_norm
         pre = 12 if cfg.use_ppf else 8
-        self.mlp_pre = ConvUnit(10 if cfg.use_ppf else feat_len, pre, dtype=dtype)
+        self.mlp_pre = ConvUnit(10 if cfg.use_ppf else feat_len, pre, norm=norm, dtype=dtype)
         c_in = [pre] + [2 * x for x in d[:-1]]
-        self.enc = nn.ModuleList(DilatedResBlock(c, x, dtype) for c, x in zip(c_in, d))
-        self.mlp_mid = ConvUnit(2 * d[-1], 2 * d[-1], dtype=dtype)
+        self.enc = nn.ModuleList(DilatedResBlock(c, x, dtype, norm) for c, x in zip(c_in, d))
+        self.mlp_mid = ConvUnit(2 * d[-1], 2 * d[-1], norm=norm, dtype=dtype)
         dec = []
         x_ch = 2 * d[-1]
         for j in range(L):
             lvl = L - j - 1
             skip = 2 * d[lvl - 1] if self.post_skips and lvl > 0 else 2 * d[lvl]
             out = 2 * d[max(L - j - 2, 0)]
-            dec.append(ConvUnit(skip + x_ch, out, dtype=dtype))
+            dec.append(ConvUnit(skip + x_ch, out, norm=norm, dtype=dtype))
             x_ch = out
         self.dec = nn.ModuleList(dec)
-        self.mlp_out = nn.Linear(x_ch, cfg.out_feat_dim, bias=False)
-        self.fc_label = MLP(cfg.out_feat_dim, (cfg.out_feat_dim, 32, num_classes),
-                            norm=cfg.fc_norm, dtype=dtype)
+        self.randla_head = cfg.label_head == "randla"
+        if self.randla_head:
+            self.fc1 = ConvUnit(x_ch, 64, norm=cfg.fc_norm, dtype=dtype)
+            self.fc2 = ConvUnit(64, 32, norm=cfg.fc_norm, dtype=dtype)
+            self.fc = ConvUnit(32, num_classes, use_norm=False, use_act=False, dtype=dtype)
+        else:
+            self.mlp_out = nn.Linear(x_ch, cfg.out_feat_dim, bias=False)
+            self.fc_label = MLP(cfg.out_feat_dim, (cfg.out_feat_dim, 32, num_classes),
+                                norm=cfg.fc_norm, dtype=dtype)
         self.dropout_rate = cfg.dropout_rate
 
     def pos_cache(self, pyr: Pyramid) -> Tuple[PosEnc, ...]:
@@ -181,27 +201,34 @@ class RandLA(nn.Module):
         """`group`: the data-parallel group that holds the rest of the batch
         (the dropout's draw, `fc_label`'s batch norm); `stacked`: the blocks
         of rows of `features` (`dropout`)."""
-        if self.use_ppf:
-            grouped = ppf_grouping(features[..., :3], features[..., 3:6], pyr.neigh_idx[0])
-            x = torch.mean(self.mlp_pre(grouped), dim=-2)       # (B, N, 12)
-        else:
-            x = self.mlp_pre(features)
-        L = len(self.enc)
-        skips = []
-        for i, enc in enumerate(self.enc):
-            x = enc(x, pyr.xyz[i], pyr.neigh_idx[i],
-                    pos=pos_cache[i] if pos_cache else None)
-            if not self.post_skips or i == 0:
-                skips.append(x)
-            x = max_pool_neighbours(x, pyr.pool_idx[i])
-            if self.post_skips and i < L - 1:
-                skips.append(x)                       # level i+1's skip
-        x = self.mlp_mid(x)
-        for j, dec in enumerate(self.dec):
-            lvl = L - j - 1
-            up = nearest_interpolate(x, pyr.interp_idx[lvl])
-            x = dec(torch.cat([skips[lvl], up], dim=-1))
-        feat = dense(self.mlp_out, x, self.dtype).float()
-        if train:
-            return feat, self.fc_label(self.dropout(feat, generator, group, stacked), group)
-        return feat, self.fc_label(feat, group)
+        with span("deepsir.randla.encoder"):
+            if self.use_ppf:
+                grouped = ppf_grouping(features[..., :3], features[..., 3:6], pyr.neigh_idx[0])
+                x = torch.mean(self.mlp_pre(grouped), dim=-2)       # (B, N, 12)
+            else:
+                x = self.mlp_pre(features)
+            L = len(self.enc)
+            skips = []
+            for i, enc in enumerate(self.enc):
+                x = enc(x, pyr.xyz[i], pyr.neigh_idx[i],
+                        pos=pos_cache[i] if pos_cache else None)
+                if not self.post_skips or i == 0:
+                    skips.append(x)
+                x = max_pool_neighbours(x, pyr.pool_idx[i])
+                if self.post_skips and i < L - 1:
+                    skips.append(x)                       # level i+1's skip
+        with span("deepsir.randla.decoder"):
+            x = self.mlp_mid(x)
+            for j, dec in enumerate(self.dec):
+                lvl = L - j - 1
+                up = nearest_interpolate(x, pyr.interp_idx[lvl])
+                x = dec(torch.cat([skips[lvl], up], dim=-1))
+        with span("deepsir.randla.head"):
+            if self.randla_head:
+                feat = self.fc2(self.fc1(x, group), group)
+                drop = self.dropout(feat, generator, group, stacked) if train else feat
+                return feat, self.fc(drop)
+            feat = dense(self.mlp_out, x, self.dtype).float()
+            if train:
+                return feat, self.fc_label(self.dropout(feat, generator, group, stacked), group)
+            return feat, self.fc_label(feat, group)

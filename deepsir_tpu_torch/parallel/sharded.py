@@ -31,7 +31,7 @@ from deepsir_tpu_torch.config import ModelConfig
 from deepsir_tpu_torch.models.network import AlignOutput, Network
 from deepsir_tpu_torch.parallel.matching import make_ring_matcher
 from deepsir_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
-from deepsir_tpu_torch.training import make_eval_step, train_step
+from deepsir_tpu_torch.training import check_data_parallel, make_eval_step, train_step
 
 
 def shard_batch(mesh: Mesh, arrays: Dict) -> Dict:
@@ -123,6 +123,7 @@ def make_sharded_eval_step(model: Network, cfg: ModelConfig, mesh: Mesh,
     arrays -> (transforms, AlignOutput) of the whole batch, every field
     gathered over the data axis, on every rank (JAX's out_shardings=None);
     `.device` as `training.make_eval_step`'s."""
+    check_data_parallel(cfg)
     base = make_eval_step(model_with_mesh_matcher(model, mesh), cfg, num_iter,
                           group=mesh.data_group)
 

@@ -169,6 +169,15 @@ def compute_loss(model: Network, loss_cfg: LossConfig, batch: PairBatch,
                    "pred_idx": out.pred_idx}
 
 
+def check_data_parallel(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for an option that a data-parallel mesh does
+    not run: `randla_norm="batch"`, whose statistics would span this rank's
+    rows only (the RandLA units take no data-parallel group)."""
+    if cfg.randla_norm == "batch":
+        raise NotImplementedError("ModelConfig.randla_norm='batch' is not ported to a "
+                                  "data-parallel mesh (the port implements it on one device)")
+
+
 def train_step(model: Network, optimizer: torch.optim.Optimizer, cfgs: RunConfig,
                arrays: Dict[str, np.ndarray], generator: Optional[torch.Generator],
                steps_per_epoch: int, mesh=None) -> Dict:
@@ -191,6 +200,8 @@ def train_step(model: Network, optimizer: torch.optim.Optimizer, cfgs: RunConfig
     """
     if model.pipeline != cfgs.pipeline:
         raise ValueError(f"a {model.pipeline} network under a {cfgs.pipeline} run config")
+    if mesh is not None:
+        check_data_parallel(cfgs.model)
     device = next(model.parameters()).device
     batch = device_batch(cfgs.model, arrays, device=device)
     optimizer.zero_grad(set_to_none=True)

@@ -4,8 +4,9 @@
 `<logdir>/logdev`, wiped first, under `dev`), logs to the console and to
 its `log.txt`, records the command, the source commit and the working
 diff (`compareHead.diff`) where git can tell them, and writes the config
-as `config.json`: `dataclasses.asdict(cfg)`, which is the JAX package's for
-the same flags, so that either package's readers read the run.
+as `config.json`: `config.config_dict(cfg)`, which is the JAX package's for
+the same flags unless a port-only option is set, so that either package's
+readers read the run.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import subprocess
 import sys
 from datetime import datetime
 from typing import Optional, Sequence, Tuple
+
+from deepsir_tpu_torch.config import Config, config_dict
 
 
 def _git_info(log_dir: str) -> Optional[str]:
@@ -74,7 +77,8 @@ def prepare_logger(cfg, log_path: Optional[str] = None,
     if sha:
         logger.info("Source commit: %s", sha[:12])
     if dataclasses.is_dataclass(cfg):
-        cfg_json = json.dumps(dataclasses.asdict(cfg), indent=2, default=str)
+        tree = config_dict(cfg) if isinstance(cfg, Config) else dataclasses.asdict(cfg)
+        cfg_json = json.dumps(tree, indent=2, default=str)
         with open(os.path.join(log_path, "config.json"), "w") as fid:
             fid.write(cfg_json)
         logger.info("Config:\n%s", cfg_json)

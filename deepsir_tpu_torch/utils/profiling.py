@@ -27,6 +27,11 @@ computed. The spans (`SPANS`), from the entry point down:
   strided pyramid that `refine_stride` builds inside the forward.
 - `deepsir.backbone`: the RandLA feature extractor over both clouds
   (`Network.backbone_pair`).
+- `deepsir.randla.encoder`, `.decoder`, `.head`: inside each forward of a
+  RandLA net (`models/randla.py`: the backbone's, and the inlier net's in
+  the loop), never inside one another: `mlp_pre`, the four blocks and
+  their pooling; `mlp_mid` and the decoder's stages; the head (`mlp_out`,
+  dropout, `fc_label`, or RandLA-Net's `fc1`, `fc2`, dropout, `fc`).
 - `deepsir.score`: keypoint scores of both clouds (`Network.score_pair`).
 - `deepsir.descriptor`: the aggregated descriptors computed once a
   forward: under align the reference descriptor and `mlp_feat` of the
@@ -66,7 +71,8 @@ import torch
 
 _logger = logging.getLogger("profiling")
 
-SPANS = ("deepsir.h2d", "deepsir.pyramid", "deepsir.backbone", "deepsir.score",
+SPANS = ("deepsir.h2d", "deepsir.pyramid", "deepsir.backbone", "deepsir.randla.encoder",
+         "deepsir.randla.decoder", "deepsir.randla.head", "deepsir.score",
          "deepsir.descriptor", "deepsir.inlier_cache", "deepsir.loop.aggregate",
          "deepsir.loop.search", "deepsir.loop.inputs", "deepsir.loop.inlier",
          "deepsir.loop.gate", "deepsir.loop.pose", "deepsir.train.forward",

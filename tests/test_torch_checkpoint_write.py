@@ -29,7 +29,7 @@ from flax.traverse_util import empty_node, flatten_dict, unflatten_dict
 from deepsir_tpu.config import Config, DataConfig, LossConfig, ModelConfig, TrainConfig
 from deepsir_tpu.training import create_train_state
 from deepsir_tpu.utils.checkpoint import CheckPointManager, partial_restore
-from deepsir_tpu_torch.config import read_run_config
+from deepsir_tpu_torch.config import PORT_FIELDS, read_run_config
 from deepsir_tpu_torch.models.network import Network
 from deepsir_tpu_torch.training import adam_count, make_optimizer
 from deepsir_tpu_torch.utils.checkpoint import load_train_state, resolve, save_checkpoint
@@ -160,7 +160,8 @@ def test_a_fresh_optimizer_writes_zero_moments_and_count(tmp_path):
 
 
 def _jax_config(cfgs):
-    return Config(pipeline="align", model=ModelConfig(**dataclasses.asdict(cfgs.model)),
+    model = {k: v for k, v in dataclasses.asdict(cfgs.model).items() if k not in PORT_FIELDS}
+    return Config(pipeline="align", model=ModelConfig(**model),
                   data=DataConfig(dataset_type="Synthetic"),
                   loss=LossConfig(**dataclasses.asdict(cfgs.loss)),
                   train=TrainConfig(**dataclasses.asdict(cfgs.train))).resolved()

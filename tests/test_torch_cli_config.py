@@ -1,6 +1,7 @@
 """The commands' flags and the run config in both packages: every `Command:`
 line of the tracked runs' log.txt files (114 test, 23 train) parses to the
-same resolved config, `dataclasses.asdict` for `dataclasses.asdict` and the
+same resolved config, `config_dict` (the port's `dataclasses.asdict` less
+its own model fields at their defaults) for `dataclasses.asdict` and the
 config.json text byte for byte; the dataset-dependent constants, the --dev
 clamps, --device, and `read_run_config` reading every data and train key.
 The comparisons are exact: both packages parse the same strings."""
@@ -48,9 +49,9 @@ def test_the_tracked_commands_are_found():
 def test_every_tracked_command_resolves_as_in_jax(path, command):
     prog, *argv = shlex.split(command)
     want, got = _both(argv, prog == "train.py")
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert port_config.config_dict(got) == dataclasses.asdict(want)
     # the run's config.json, as prepare_logger writes it
-    assert json.dumps(dataclasses.asdict(got), indent=2, default=str) == \
+    assert json.dumps(port_config.config_dict(got), indent=2, default=str) == \
         json.dumps(dataclasses.asdict(want), indent=2, default=str)
 
 
@@ -64,7 +65,7 @@ def test_every_tracked_command_resolves_as_in_jax(path, command):
 ])
 def test_resolution_and_short_flags_match_jax(argv):
     want, got = _both(argv.split(), train=True)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert port_config.config_dict(got) == dataclasses.asdict(want)
     assert got == port_config.config_from_args(
         port_config.train_argument_parser().parse_args(argv.split())).resolved()
 
@@ -82,7 +83,7 @@ def test_precision_and_ppf_flags_resolve_as_in_jax(argv, train):
     """The bf16, PPF and matmul-precision flags give JAX's config and
     config.json, and a network of every pipeline builds from them."""
     want, got = _both(argv.split(), train)
-    assert json.dumps(dataclasses.asdict(got), indent=2, default=str) == \
+    assert json.dumps(port_config.config_dict(got), indent=2, default=str) == \
         json.dumps(dataclasses.asdict(want), indent=2, default=str)
     port_config.check_supported(got.model)
     from deepsir_tpu_torch.models.network import Network
@@ -103,10 +104,12 @@ def test_dev_and_dataset_constants():
 
 
 def test_device_flag_is_the_only_flag_added():
+    """Besides --device, only the flags of the port's own model fields."""
     for make in ("train_argument_parser", "eval_argument_parser"):
         jax_flags = {a.dest for a in getattr(jax_config, make)()._actions}
         port_flags = {a.dest for a in getattr(port_config, make)()._actions}
-        assert port_flags - jax_flags == {"device"} and jax_flags <= port_flags
+        assert port_flags - jax_flags == {"device"} | set(port_config.PORT_FIELDS)
+        assert jax_flags <= port_flags
     args = port_config.eval_argument_parser().parse_args([])
     assert args.device == "cuda"
     assert "device" not in json.dumps(dataclasses.asdict(port_config.config_from_args(args)))

@@ -14,8 +14,8 @@ import pytest
 from deepsir_tpu.config import (Config, DataConfig, EvalConfig as JaxEvalConfig,
                                 LossConfig as JaxLossConfig, ModelConfig as JaxModelConfig,
                                 TrainConfig as JaxTrainConfig)
-from deepsir_tpu_torch.config import (DataConfig as PortDataConfig, EvalConfig, LossConfig,
-                                      ModelConfig, TrainConfig, from_run_config,
+from deepsir_tpu_torch.config import (PORT_FIELDS, DataConfig as PortDataConfig, EvalConfig,
+                                      LossConfig, ModelConfig, TrainConfig, from_run_config,
                                       read_run_config)
 from deepsir_tpu_torch.models.network import Network
 
@@ -40,12 +40,16 @@ def test_every_tracked_align_config_maps(path):
     jax_cfg = JaxModelConfig(**{k: tuple(v) if isinstance(v, list) else v
                                 for k, v in run["model"].items()})
     for field in dataclasses.fields(ModelConfig):
-        assert getattr(cfg, field.name) == getattr(jax_cfg, field.name), field.name
-    # every key is a field, and the two configs have the same fields
+        # the port's own fields, which JAX's runs lack, read as their defaults
+        want = PORT_FIELDS[field.name] if field.name in PORT_FIELDS else \
+            getattr(jax_cfg, field.name)
+        assert getattr(cfg, field.name) == want, field.name
+    # every key is a field, and the two configs have the same fields but
+    # the port's own
     jax_fields = {f.name for f in dataclasses.fields(JaxModelConfig)}
     port_fields = {f.name for f in dataclasses.fields(ModelConfig)}
     assert set(run["model"]) <= port_fields
-    assert jax_fields == port_fields
+    assert jax_fields == port_fields - set(PORT_FIELDS)
 
 
 def test_the_deploy_and_flagship_configs_build_a_network():
@@ -108,6 +112,9 @@ def test_label_and_feat_configs_read_as_jax(path):
     jax_cfg = _jax_config(run)
     for block, cls in (("model", ModelConfig), ("loss", LossConfig), ("train", TrainConfig)):
         for field in dataclasses.fields(cls):
+            if block == "model" and field.name in PORT_FIELDS:
+                assert getattr(cfgs.model, field.name) == PORT_FIELDS[field.name]
+                continue
             assert getattr(getattr(cfgs, block), field.name) == \
                 getattr(getattr(jax_cfg, block), field.name), (block, field.name)
     Network(cfgs.model, cfgs.pipeline)

@@ -70,6 +70,8 @@ def test_align_forward_holds_every_eval_span(options):
     _, names = traced(lambda: model.forward_align(device_batch(cfg, arrays(), "cpu"), opts))
     want = dict(EVAL_SPANS, **{n: cfg.num_reg_iter for n in SPANS
                                if n.startswith("deepsir.loop.")})
+    # the RandLA spans open in the backbone's forward and in each inlier pass
+    want.update({n: 1 + cfg.num_reg_iter for n in SPANS if n.startswith("deepsir.randla.")})
     assert dict(names) == want
 
 
