@@ -38,7 +38,12 @@ tests/data/torch_parity_train.npz against JAX's stored steps, four
 full-width steps (18000 points, dropout 0.5) each on the default options
 (K1, K2) and F (K1, K3) with seeded weights, one step of each and of the
 staged checkpoint at 18000 points against the same step with plain versions
-of every kernel, and a checkpoint written and read back; then the label and
+of every kernel, a checkpoint written and read back, and three align steps
+with CUDA graphs against the same steps eagerly at 1024 points
+(`graphs_against_eager`; the label and feat phases run it too); every
+training step past the first on its batch's shapes runs from graphs, with
+its launch counts unchanged, and each phase prints what its steps did
+(captures, replays, eager steps by reason); then the label and
 feat pipelines ("label" and "feat" phases): the staged regimen's label and
 feat checkpoints, read by the port's decoder, against JAX's stored eval
 forward and resumed training step at 1024 points
@@ -47,8 +52,9 @@ configs (feat: circle_loss_tile 1500) the forward (`training.forward_step`)
 and a training step against the plain kernels, the forward timed, four
 training steps at dropout 0.5 (label: random labels; feat: rigid pairs),
 K1 16 times per forward and per step, and a checkpoint round trip (feat:
-the step's gradients with the circle-loss kernel against its plain loop as
-the benchmark measures `grad_gap`, the kernel against that loop at 18000 x
+the step's gradients with the circle-loss kernel, eager and replayed from
+graphs, against its plain loop as the benchmark measures `grad_gap`, the
+kernel against that loop at 18000 x
 18000 x 64 on jittered points, exact duplicates and every pair in radius,
 and both timed); and the "stages" phase: `utils.checkpoint.partial_restore` label -> feat -> align
 on the card with JAX's leaf counts; and the eval harness ("eval" phase):
@@ -118,6 +124,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
@@ -189,11 +196,24 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def graph_counts() -> Counter:
+    """`train_step`'s counters: steps captured, replayed, and run eagerly
+    ("eager <reason>")."""
+    if "deepsir_tpu_torch.training" not in sys.modules:
+        return Counter()
+    from deepsir_tpu_torch.training import train_step
+    return Counter(captures=train_step.graph_captures, replays=train_step.graph_replays,
+                   **{f"eager {k}": n for k, n in train_step.eager_steps.items()})
+
+
 @contextmanager
 def phase(name: str):
-    t0 = time.perf_counter()
+    t0, before = time.perf_counter(), graph_counts()
     log(f"[phase] {name} ...")
     yield
+    steps = graph_counts() - before
+    if steps:
+        log(f"[phase] {name} train steps: {json.dumps(dict(steps))}")
     log(f"[phase] {name} done in {time.perf_counter() - t0:.3f} s")
 
 
@@ -1636,6 +1656,7 @@ def check_train(torch, dev):
         for key, n in launches.items():
             total[key] += n
     record["trained_vs_plain"] = train_trained_against_plain(torch, dev)
+    record["graphs"] = graphs_against_eager(torch, dev, "align")
     # round trip of the last case's model and Adam state
     size, equal = round_trip(torch, model, opt, dev, TRAIN_STEPS)
     if not equal:
@@ -1855,23 +1876,241 @@ def circle_step_against_plain(torch, model, cfgs, arrays, dev) -> dict:
     dropout seed, every other kernel as it is), held as the benchmark holds
     the feat cell's `grad_gap`: each trained leaf's gradient norm gap over
     the larger of the plain run's norm and the median leaf's, the worst
-    leaf, within CIRCLE_STEP_GRAD_GAP; the loss within 1e-6 relative. The
+    leaf, within CIRCLE_STEP_GRAD_GAP; the loss within 1e-6 relative; the
+    same for the kernel's step replayed from CUDA graphs (`replayed_grads`),
+    whose grads are also compared with the eager run's bit for bit. The
     kernel's backward hands each column tile to the cuBLAS products autograd
     runs on the plain loop, and the heads' gradients keep within the cell's
     limit only while those products round as they do there: a library that
     reduces them otherwise fails here. Returns the record."""
     k, p = _runs_against_plain(torch, model, cfgs, arrays, dev, seed=4, swap=plain_circle)
-    norms = [{n: float(g.double().norm()) for n, g in r["grads"].items()} for r in (k, p)]
+    r_loss, r_grads = replayed_grads(torch, model, cfgs, arrays, dev, seed=4)
+    norms = [{n: float(g.double().norm()) for n, g in grads.items()}
+             for grads in (k["grads"], p["grads"], r_grads)]
     floor = float(np.median(list(norms[1].values())))
+
+    def gap(i):
+        return max(abs(norms[i][n] - w) / max(w, floor, 1e-30) for n, w in norms[1].items())
+
     rec = {"loss": k["loss"], "plain_loss": p["loss"],
            "loss_rel_err": abs(k["loss"] - p["loss"]) / abs(p["loss"]),
-           "grad_norm_gap": max(abs(norms[0][n] - w) / max(w, floor, 1e-30)
-                                for n, w in norms[1].items()),
-           "grad_rel_err": _grads_agree(k["grads"], p["grads"], 1e-3)}
-    if rec["loss_rel_err"] > 1e-6 or rec["grad_norm_gap"] > CIRCLE_STEP_GRAD_GAP:
+           "grad_norm_gap": gap(0), "grad_rel_err": _grads_agree(k["grads"], p["grads"], 1e-3),
+           "replayed": {"loss_rel_err": abs(r_loss - p["loss"]) / abs(p["loss"]),
+                        "grad_norm_gap": gap(2),
+                        "grads_bit_equal_to_eager": all(torch.equal(r_grads[n], g)
+                                                        for n, g in k["grads"].items())}}
+    if max(rec["loss_rel_err"], rec["replayed"]["loss_rel_err"]) > 1e-6 or \
+            max(rec["grad_norm_gap"], rec["replayed"]["grad_norm_gap"]) > CIRCLE_STEP_GRAD_GAP:
         raise AssertionError(f"feat step, circle-loss kernel against its plain loop: {rec}")
     log(f"feat step at {N_POINTS} points, circle-loss kernel against its plain loop: "
         f"{json.dumps(rec)}")
+    return rec
+
+
+def replayed_grads(torch, model, cfgs, arrays, dev, seed: int):
+    """The loss and grads of a `train_step` replayed from CUDA graphs at
+    `model`'s parameters with dropout from a generator seeded `seed`: a copy
+    of `model` takes two steps on `arrays` (the eager warm-up and the
+    capture), then takes `model`'s parameters in place (which keeps the
+    capture) and the generator is seeded again; its third step is a replay."""
+    from deepsir_tpu_torch.training import make_optimizer, train_step
+    twin = copy.deepcopy(model)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    opt = make_optimizer(twin)
+    captures = train_step.graph_captures
+    for _ in range(2):
+        train_step(twin, opt, cfgs, arrays, gen, 1)
+    twin.load_state_dict(model.state_dict())
+    gen.manual_seed(seed)
+    replays = train_step.graph_replays
+    out = train_step(twin, opt, cfgs, arrays, gen, 1)
+    if (train_step.graph_captures - captures, train_step.graph_replays - replays) != (1, 1):
+        raise AssertionError("replayed_grads: the third step was not a replay")
+    return float(out["loss"]), {n: g.clone() for n, g in out["grads"].items()}
+
+
+GRAPH_POINTS = CLI_POINTS         # the graphed-against-eager steps' clouds
+GRAPH_STEPS = 3                   # eager warm-up, capture and replay, replay
+# the pipelines' models for it: the label step's is RandLA-Net's published
+# recipe (batch norm), as the benchmark's label cell runs it
+GRAPH_MODELS = {"align": {}, "feat": {},
+                "label": dict(randla_skips="post", fc_norm="batch", randla_norm="batch",
+                              label_head="randla")}
+GRAPH_TOL = 1e-6                  # of each leaf's scale, where the bits differ
+
+
+def graph_arrays(rng, pipeline: str, batch: int, n: int = GRAPH_POINTS):
+    """Rigid pairs at `n` points (train_arrays' recipe) with feat_len 4,
+    and under label per-point labels 0..19."""
+    xyz = rng.normal(size=(batch, n, 3)).astype(np.float32) * 10.0
+    src = np.concatenate([xyz, rng.uniform(size=(batch, n, 1)).astype(np.float32)], -1)
+    ref, gt = np.empty_like(src), np.empty((batch, 3, 4), np.float32)
+    for b in range(batch):
+        ang = rng.uniform(0.0, np.pi / 6)
+        rot = np.array([[np.cos(ang), -np.sin(ang), 0], [np.sin(ang), np.cos(ang), 0],
+                        [0, 0, 1]], np.float32)
+        t = rng.uniform(-0.5, 0.5, size=3).astype(np.float32)
+        moved = src[b].copy()
+        moved[:, :3] = src[b, :, :3] @ rot.T + t + rng.normal(scale=0.02, size=(n, 3))
+        ref[b] = moved[rng.permutation(n)]
+        gt[b] = np.concatenate([rot, t[:, None]], axis=1)
+    arrays = {"points_src": src, "points_ref": ref, "transform_gt": gt}
+    if pipeline == "label":
+        for side in ("src", "ref"):
+            arrays[f"labels_{side}"] = rng.integers(0, 20, size=(batch, n)).astype(np.int32)
+    return arrays
+
+
+def _poisoned(pipeline: str, arrays):
+    """A copy of `arrays` with one non-finite value that reaches the loss and
+    no index: align's ground-truth rotation, else a reflectance (a NaN
+    coordinate could leave a search's row without a neighbour)."""
+    bad = {k: v.copy() for k, v in arrays.items()}
+    if pipeline == "align":
+        bad["transform_gt"][0, 0, 0] = np.nan
+    else:
+        bad["points_src"][0, 5, 3] = np.nan
+    return bad
+
+
+def _leaf_gaps(torch, got, want) -> list:
+    """Per leaf: the largest difference over the larger of the leaf's
+    largest magnitude and the median leaf's (a leaf whose true gradient is
+    zero, as a bias before a batch norm, holds rounding noise alone); 0.0
+    where bit-equal, None where both are None."""
+    scales = {n: float(w.double().abs().max()) for n, w in want.items() if w is not None}
+    floor = float(np.median(list(scales.values())))
+    gaps = []
+    for name, w in want.items():
+        g = got[name]
+        if w is None or g is None:
+            if (w is None) != (g is None):
+                raise AssertionError(f"{name}: a grad on one side only")
+            gaps.append(None)
+        elif torch.equal(g, w):
+            gaps.append(0.0)
+        else:
+            gaps.append(float((g.double() - w.double()).abs().max())
+                        / max(scales[name], floor, 1e-30))
+    return gaps
+
+
+@contextmanager
+def deterministic(torch):
+    """torch's deterministic algorithms (sorted index_add and scatter_add in
+    the gathers' backward, in place of atomic adds), warning where an
+    operation has none, and torch.empty left unfilled, as it is by default."""
+    import torch.utils.deterministic as det
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled(),
+              det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        det.fill_uninitialized_memory = before[2]
+
+
+def graphs_against_eager(torch, dev, pipeline: str, n: int = GRAPH_POINTS) -> dict:
+    """GRAPH_STEPS steps of `train_step` with graphs (an eager warm-up, the
+    capture and its replay, a replay) against the same steps eagerly and
+    eagerly once more, each from the same seeded weights, batches (B=2, `n`
+    points) and dropout seed, under torch's deterministic algorithms: every
+    step's loss terms, every grad leaf and every parameter after the steps
+    bit-equal to the eager run's; where the two eager runs differ too (an
+    operation with no deterministic form), within GRAPH_TOL of the leaf's
+    scale (`_leaf_gaps`). Each step's kernel launches as the eager step's.
+    Then a batch with a planted NaN (`_poisoned`), skipped by both with
+    Adam's count unchanged; a second batch shape (B=1), captured exactly
+    once in three steps. Returns the record."""
+    with deterministic(torch):
+        return _graphs_against_eager(torch, dev, pipeline, n)
+
+
+def _graphs_against_eager(torch, dev, pipeline: str, n: int) -> dict:
+    from deepsir_tpu_torch.config import LossConfig, ModelConfig, RunConfig, TrainConfig
+    from deepsir_tpu_torch.models.network import Network
+    from deepsir_tpu_torch.training import adam_count, make_optimizer, train_step
+    from deepsir_tpu_torch.utils.params import init_params, trainable_parameters
+    cfg = ModelConfig(feat_len=FEAT_LEN, num_points=n, **GRAPH_MODELS[pipeline])
+    cfgs = RunConfig(cfg, LossConfig(thres_radius=TRAIN_THRES_RADIUS, circle_loss_tile=n // 4),
+                     TrainConfig(), pipeline)
+    weights = init_params(cfg, seed=0, pipeline=pipeline)
+    rng = np.random.default_rng(21)
+    feeds = [graph_arrays(rng, pipeline, 2, n) for _ in range(GRAPH_STEPS)]
+    counted = kernels()
+    runs = []
+    for graphs in (False, False, True):
+        model = Network(cfg, pipeline)
+        model.load_state_dict(weights)
+        model.to(dev)
+        opt = make_optimizer(model)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        before = graph_counts()
+        steps = []
+        for arrays in feeds:
+            reset_counts(counted)
+            out = train_step(model, opt, cfgs, arrays, gen, 1, graphs=graphs)
+            steps.append({"terms": {"total": out["loss"].clone(),
+                                    **{k: v.clone() for k, v in out.get("losses", {}).items()}},
+                          "grads": {k: None if v is None else v.clone()
+                                    for k, v in out["grads"].items()},
+                          "launches": read_counts(counted), "skipped": out["skipped"]})
+        counts = graph_counts()
+        runs.append({"steps": steps, "model": model, "opt": opt, "gen": gen,
+                     "params": {k: p.detach().clone() for k, p in trainable_parameters(model)},
+                     "captures": counts["captures"] - before["captures"],
+                     "replays": counts["replays"] - before["replays"]})
+    eager, again, graphed = runs
+    if (graphed["captures"], graphed["replays"]) != (1, GRAPH_STEPS - 1) or \
+            (eager["captures"], eager["replays"]) != (0, 0):
+        raise AssertionError(f"{pipeline} graphs: captures {graphed['captures']}, replays "
+                             f"{graphed['replays']}")
+    rec = {"pipeline": pipeline, "points": n, "batch": 2, "steps": []}
+    worst = {"graphed": 0.0, "eager_again": 0.0}
+    for i, (e, a, g) in enumerate(zip(eager["steps"], again["steps"], graphed["steps"])):
+        if g["launches"] != e["launches"] or g["skipped"] or e["skipped"]:
+            raise AssertionError(f"{pipeline} graphs step {i + 1}: launches {g['launches']} "
+                                 f"against {e['launches']}, skipped {g['skipped']}")
+        step = {}
+        for what, other in (("graphed", g), ("eager_again", a)):
+            terms = _leaf_gaps(torch, other["terms"], e["terms"])
+            grads = [x for x in _leaf_gaps(torch, other["grads"], e["grads"]) if x is not None]
+            step[what] = {"terms": max(terms), "grads": max(grads),
+                          "grads_bit_equal": sum(x == 0.0 for x in grads), "leaves": len(grads)}
+            worst[what] = max(worst[what], max(terms), max(grads))
+        rec["steps"].append(step)
+    for what, other in (("graphed", graphed), ("eager_again", again)):
+        gaps = _leaf_gaps(torch, other["params"], eager["params"])
+        rec[f"params_{what}"] = {"max": max(gaps), "bit_equal": sum(x == 0.0 for x in gaps),
+                                 "leaves": len(gaps)}
+        worst[what] = max(worst[what], max(gaps))
+    rec["worst"] = worst
+    if worst["graphed"] > 0.0 and (worst["graphed"] > GRAPH_TOL or worst["eager_again"] == 0.0):
+        raise AssertionError(f"{pipeline} graphs against eager: {json.dumps(rec)}")
+
+    skipped = []
+    for run in (eager, graphed):
+        count = adam_count(run["opt"])
+        out = train_step(run["model"], run["opt"], cfgs, _poisoned(pipeline, feeds[0]),
+                         run["gen"], 1, graphs=run is graphed)
+        skipped.append(out["skipped"])
+        if adam_count(run["opt"]) != count:
+            raise AssertionError(f"{pipeline} graphs: a skipped step advanced Adam's count")
+    if skipped != [True, True]:
+        raise AssertionError(f"{pipeline} graphs: the poisoned batch skipped {skipped}")
+    before = graph_counts()
+    other = [graph_arrays(rng, pipeline, 1, n) for _ in range(3)]
+    captured = []
+    for arrays in other:
+        train_step(graphed["model"], graphed["opt"], cfgs, arrays, graphed["gen"], 1)
+        captured.append(graph_counts()["captures"] - before["captures"])
+    if captured != [0, 1, 1]:
+        raise AssertionError(f"{pipeline} graphs: a second shape captured {captured}")
+    rec.update(skipped=skipped, captures=graphed["captures"] + captured[-1])
+    log(f"{pipeline} steps with graphs against eager at {n} points: {json.dumps(rec)}")
     return rec
 
 
@@ -2132,7 +2371,8 @@ def check_stage(torch, dev, pipeline: str):
     full_launches, full = stage_full_width(torch, dev, pipeline)
     launches = {k: n + full_launches[k] for k, n in launches.items()}
     record = {"checkpoint": {"leaves": got[0], "params": got[1], "decode_s": decode_s},
-              "parity": parity, "full_width": full}
+              "parity": parity, "full_width": full,
+              "graphs": graphs_against_eager(torch, dev, pipeline)}
     if pipeline == "feat":
         record["circle"] = check_circle(torch, dev)
         record["circle"]["launches_per_step"] = full["launches"]["circle_rows"] / full["steps"]

@@ -39,6 +39,18 @@ LABEL_NAMES = (
     "other-ground", "building", "fence", "vegetation", "trunk", "terrain",
     "pole", "traffic-sign")
 
+_CLASS_WEIGHTS = {}                     # CLASS_WEIGHTS by device
+
+
+def _class_weights(device) -> torch.Tensor:
+    """CLASS_WEIGHTS on `device`, copied there once: a copy from the host in
+    every step would wait for the device, and cannot be captured in a CUDA
+    graph."""
+    weights = _CLASS_WEIGHTS.get(device)
+    if weights is None:
+        weights = _CLASS_WEIGHTS[device] = torch.as_tensor(CLASS_WEIGHTS, device=device)
+    return weights
+
 
 def _target(labels: torch.Tensor):
     """(valid mask, class index 0..18) of raw labels."""
@@ -57,7 +69,7 @@ def semantic_loss(logits: torch.Tensor, labels: torch.Tensor, group: ProcessGrou
     valid, target = _target(labels)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, target[..., None])[..., 0]
-    weights = torch.as_tensor(CLASS_WEIGHTS, device=logits.device)[target] * valid
+    weights = _class_weights(logits.device)[target] * valid
     loss = torch.sum(nll * weights) / (global_sum(torch.sum(weights), group) + 1e-12)
     correct = (torch.argmax(logits, dim=-1) == target) & valid
     counts = global_sum(torch.stack([torch.sum(correct), torch.sum(valid)]), group)

@@ -22,6 +22,19 @@ LABEL_WEIGHTS = (3, 1, 1, 3, 2,
 AGGREGATION_BALL_R = 2.0       # isolation radius
 PROB_GATE = 0.2                # semantic confidence gate
 
+_LABEL_WEIGHTS = {}                     # LABEL_WEIGHTS by (dtype, device)
+
+
+def _label_weights(dtype, device) -> torch.Tensor:
+    """LABEL_WEIGHTS on `device`, copied there once: a copy from the host in
+    every forward would wait for the device, and cannot be captured in a
+    CUDA graph."""
+    weights = _LABEL_WEIGHTS.get((dtype, device))
+    if weights is None:
+        weights = _LABEL_WEIGHTS[dtype, device] = torch.tensor(LABEL_WEIGHTS, dtype=dtype,
+                                                               device=device)
+    return weights
+
 
 def score_points(feat: torch.Tensor, xyz: torch.Tensor, logits: torch.Tensor,
                  neigh_idx: torch.Tensor, k_neighbours: int = 16) -> torch.Tensor:
@@ -44,7 +57,7 @@ def score_points(feat: torch.Tensor, xyz: torch.Tensor, logits: torch.Tensor,
     # as in the reference, `prob` is the max RAW logit normalised by the
     # per-sample max, not a softmax probability
     prob, label = torch.max(logits, dim=-1)
-    weights = torch.tensor(LABEL_WEIGHTS, dtype=feat.dtype, device=feat.device)
+    weights = _label_weights(feat.dtype, feat.device)
     label_score = weights[label]
     label_score = label_score / (torch.amax(label_score, dim=-1, keepdim=True) + _EPS)
     prob_n = prob / (torch.amax(prob, dim=-1, keepdim=True) + _EPS)

@@ -11,7 +11,9 @@ trainable groups only (the staged freeze, `utils.params.TRAINABLE_GROUPS`)
 at the staircase-decayed learning rate. A non-finite loss or gradient, or
 an invalid pose solve, skips the whole update: parameters, moments and
 count stay as they were, and so does the learning rate, which follows the
-count of applied updates.
+count of applied updates. On one CUDA device the step is replayed from
+CUDA graphs after its first call on a batch's shapes (`train_step`,
+step_graph.py).
 
 Data parallelism (parallel/sharded.py drives it): given a `mesh`, each
 process holds its rows of the global batch and an identical copy of the
@@ -24,12 +26,14 @@ the single-device step on the global batch.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from deepsir_tpu_torch import step_graph
 from deepsir_tpu_torch.config import LossConfig, ModelConfig, RunConfig, TrainConfig, \
     check_supported
 from deepsir_tpu_torch.losses.align import scan_alignment_loss
@@ -46,17 +50,28 @@ _MASKS = ("mask_src", "mask_ref")
 _INDICES = ("matches", "num_matches", "labels_src", "labels_ref")
 
 
+def _host_tensor(x) -> torch.Tensor:
+    """A host array as a tensor of its own dtype (a tensor as it is)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    x = np.ascontiguousarray(x)
+    if x.dtype.name == "bfloat16":               # numpy has no bf16 of its own
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(x)
+
+
 def _to_device(x, device) -> torch.Tensor:
     """A host array or tensor on `device` as fp32. Half-width payloads
     (float16, or bfloat16 as a torch tensor or an ml_dtypes numpy array)
     cross to the device as they are and are upcast there."""
-    if not isinstance(x, torch.Tensor):
-        x = np.ascontiguousarray(x)
-        if x.dtype.name == "bfloat16":           # numpy has no bf16 of its own
-            x = torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
-        else:
-            x = torch.from_numpy(x)
-    return x.to(device=device).to(torch.float32)
+    return _host_tensor(x).to(device=device).to(torch.float32)
+
+
+def _check_arrays(cfg: ModelConfig, arrays: Dict[str, np.ndarray]) -> None:
+    check_supported(cfg)
+    extra = sorted(set(arrays) - set(_KEYS) - set(_MASKS) - set(_INDICES))
+    if extra:
+        raise NotImplementedError(f"device_batch arrays {extra}")
 
 
 def device_batch(cfg: ModelConfig, arrays: Dict[str, np.ndarray],
@@ -72,10 +87,7 @@ def device_batch(cfg: ModelConfig, arrays: Dict[str, np.ndarray],
     device). Under `pyramid_order="morton"` the caller passes curve-sorted
     clouds (ops/morton.py::sort_clouds); this function does not sort.
     """
-    check_supported(cfg)
-    extra = sorted(set(arrays) - set(_KEYS) - set(_MASKS) - set(_INDICES))
-    if extra:
-        raise NotImplementedError(f"device_batch arrays {extra}")
+    _check_arrays(cfg, arrays)
     with span("deepsir.h2d"):
         src, ref = (_to_device(arrays[k], device) for k in ("points_src", "points_ref"))
         masks = {k: _to_device(arrays[k], device) for k in _MASKS if k in arrays}
@@ -87,6 +99,24 @@ def device_batch(cfg: ModelConfig, arrays: Dict[str, np.ndarray],
         transform_gt = _to_device(arrays["transform_gt"], device)
     return PairBatch(points_src=src, points_ref=ref, pyramid_src=pyramid_src,
                      pyramid_ref=pyramid_ref, transform_gt=transform_gt, **masks, **indices)
+
+
+def _static_inputs(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """Device buffers for `arrays`, as `device_batch` types them (int32
+    indices, fp32 otherwise), left unfilled."""
+    return {k: torch.empty(tuple(v.shape), device=device,
+                           dtype=torch.int32 if k in _INDICES else torch.float32)
+            for k, v in arrays.items()}
+
+
+def _static_batch(cfg: ModelConfig, inputs: Dict[str, torch.Tensor]) -> PairBatch:
+    """`device_batch` over device buffers already filled: both pyramids."""
+    src, ref = inputs["points_src"], inputs["points_ref"]
+    return PairBatch(points_src=src, points_ref=ref,
+                     pyramid_src=build_cloud_pyramid(cfg, src[..., :3]),
+                     pyramid_ref=build_cloud_pyramid(cfg, ref[..., :3]),
+                     transform_gt=inputs["transform_gt"],
+                     **{k: inputs[k] for k in _MASKS + _INDICES if k in inputs})
 
 
 def batch_arrays_only(batch: Dict) -> Dict[str, np.ndarray]:
@@ -180,7 +210,7 @@ def check_data_parallel(cfg: ModelConfig) -> None:
 
 def train_step(model: Network, optimizer: torch.optim.Optimizer, cfgs: RunConfig,
                arrays: Dict[str, np.ndarray], generator: Optional[torch.Generator],
-               steps_per_epoch: int, mesh=None) -> Dict:
+               steps_per_epoch: int, mesh=None, *, graphs: bool = True) -> Dict:
     """One training step of `model.pipeline` (which must be
     `cfgs.pipeline`) on the device of `model`'s parameters.
 
@@ -195,14 +225,41 @@ def train_step(model: Network, optimizer: torch.optim.Optimizer, cfgs: RunConfig
     "pred_idx" under align, "acc" under label and feat), and "loss",
     "invalid", "grads" (the trained parameters' grads by parameter name,
     None where none was computed), "lr" (of this step) and "skipped". The
-    skip guard reads one device boolean on the host per step; the training
-    step is not captured in a CUDA graph.
+    skip guard reads one device boolean on the host per step.
+
+    On a CUDA device with no mesh and anomaly detection off, the step from
+    the pyramids through the guard's checks is captured as CUDA graphs cut
+    at the spans on its second call with a batch of its keys, shapes and
+    dtypes, and replayed from then on (`step_graph`); the values are the
+    eager step's. A replayed step's grads are the capture's static tensors,
+    which the next replay of that capture overwrites. `graphs=False` runs
+    the step eagerly, for the tests and `chip_smoke.py`, which hold the two
+    against each other; nothing else passes it. The step counts what it did
+    in `train_step.graph_captures`, `.graph_replays` and `.eager_steps` (by
+    reason, `step_graph.REASONS`).
     """
     if model.pipeline != cfgs.pipeline:
         raise ValueError(f"a {model.pipeline} network under a {cfgs.pipeline} run config")
     if mesh is not None:
         check_data_parallel(cfgs.model)
     device = next(model.parameters()).device
+    reason = step_graph.eager_reason(device, mesh, generator, graphs)
+    if reason is None:
+        _check_arrays(cfgs.model, arrays)
+        steps = step_graph.captures(model)
+        key = step_graph.step_key(optimizer, generator, cfgs, arrays)
+        held = steps.get(key)
+        if held is None:
+            steps[key] = step_graph.WARM
+            reason = "warmup"
+        else:
+            fresh = held is step_graph.WARM
+            if fresh:
+                held = steps[key] = _capture_step(model, optimizer, cfgs, arrays, generator,
+                                                  device)
+                train_step.graph_captures += 1
+            return _replay_step(held, optimizer, cfgs, arrays, steps_per_epoch, count=not fresh)
+    train_step.eager_steps[reason] += 1
     batch = device_batch(cfgs.model, arrays, device=device)
     optimizer.zero_grad(set_to_none=True)
     loss, aux = compute_loss(model, cfgs.loss, batch, generator,
@@ -215,25 +272,95 @@ def train_step(model: Network, optimizer: torch.optim.Optimizer, cfgs: RunConfig
             aux = _global_aux(aux, mesh.data_group)
             loss = aux["loss"]
     with span("deepsir.train.guard"):
-        ok = torch.isfinite(loss.detach()) & ~aux["invalid"]
-        for _, p in named:
-            if p.grad is not None:
-                ok = ok & torch.isfinite(p.grad).all()
-        if mesh is not None:
-            # one rank's non-finite grad or failed solve skips the step everywhere
-            ok = ok.to(torch.int32)
-            dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=mesh.group)
+        ok = _guard(loss, aux, named, mesh)
         applied = bool(ok)                              # the step's one host read
+    return _update(optimizer, cfgs, steps_per_epoch, applied, aux, named)
+
+
+train_step.graph_captures = train_step.graph_replays = 0
+train_step.eager_steps = Counter()
+
+
+def _guard(loss, aux, named, mesh=None) -> torch.Tensor:
+    """The skip guard's device flag: the loss and every grad finite and no
+    pose solve invalid; under a mesh, over every rank."""
+    ok = torch.isfinite(loss.detach()) & ~aux["invalid"]
+    for _, p in named:
+        if p.grad is not None:
+            ok = ok & torch.isfinite(p.grad).all()
+    if mesh is not None:
+        # one rank's non-finite grad or failed solve skips the step everywhere
+        ok = ok.to(torch.int32)
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=mesh.group)
+    return ok
+
+
+def _update(optimizer, cfgs: RunConfig, steps_per_epoch: int, applied: bool, aux: Dict,
+            named) -> Dict:
+    """Adam's update at this step's learning rate unless the guard skipped
+    it, and the step's outputs (train_step)."""
     lr = lr_at(adam_count(optimizer), cfgs.train, steps_per_epoch)
     if applied:
         with span("deepsir.train.optimizer"):
             for group in optimizer.param_groups:
                 group["lr"] = lr
             optimizer.step()
-    out = {k: v.detach() for k, v in aux.items() if k != "losses"}
-    if "losses" in aux:
-        out["losses"] = {k: v.detach() for k, v in aux["losses"].items()}
-    return dict(out, grads={n: p.grad for n, p in named}, lr=lr, skipped=not applied)
+    return dict(_map_aux(torch.Tensor.detach, aux), grads={n: p.grad for n, p in named}, lr=lr,
+                skipped=not applied)
+
+
+def _map_aux(fn, aux: Dict) -> Dict:
+    """compute_loss's aux with `fn` applied to each tensor, "losses"' too."""
+    return {k: {n: fn(v) for n, v in value.items()} if isinstance(value, dict) else fn(value)
+            for k, value in aux.items()}
+
+
+def _capture_step(model: Network, optimizer, cfgs: RunConfig, arrays, generator,
+                  device) -> step_graph.StepGraph:
+    """Capture the step on `arrays`' keys, shapes and dtypes: from the
+    pyramids through the guard's flag, with the grads at None so that the
+    backward writes fresh grads into the same static tensors at every
+    replay. Nothing runs until the first replay."""
+    inputs = _static_inputs(arrays, device)
+    named = tuple(trainable_parameters(model))
+    optimizer.zero_grad(set_to_none=True)
+    with step_graph.capturing(device, generator) as capture:
+        ok, aux = _captured(model, cfgs, inputs, generator, named, capture)
+    return step_graph.StepGraph(inputs, tuple(capture.segments), ok, aux, named,
+                                tuple(p.grad for _, p in named))
+
+
+def _captured(model: Network, cfgs: RunConfig, inputs, generator, named, capture):
+    """What a capture records, inside `capture` (a step_graph.Capture): the
+    step on the static `inputs` through the guard's flag, the last graph
+    ended inside the guard's span. Returns the flag and compute_loss's aux,
+    detached, so that the captured autograd graph is freed."""
+    loss, aux = compute_loss(model, cfgs.loss, _static_batch(cfgs.model, inputs), generator)
+    with span("deepsir.train.backward"):
+        loss.backward()
+    with span("deepsir.train.guard"):
+        ok = _guard(loss, aux, named)
+        capture.finish()
+    return ok, _map_aux(torch.Tensor.detach, aux)
+
+
+def _replay_step(held: step_graph.StepGraph, optimizer, cfgs: RunConfig, arrays,
+                 steps_per_epoch: int, count: bool) -> Dict:
+    """The step by replay of `held`: the batch copied into its static
+    inputs, its graphs, the guard's read, Adam. `count`: add the graphs'
+    launch counts to the kernels' counters (the capturing step's calls
+    counted them already)."""
+    with span("deepsir.h2d"):
+        for k, x in arrays.items():
+            held.inputs[k].copy_(_host_tensor(x))
+    with step_graph.replay(held.segments, count=count):
+        applied = bool(held.ok)                         # the step's one host read
+    for (_, p), grad in zip(held.named, held.grads):
+        p.grad = grad
+    train_step.graph_replays += 1
+    # copies, which the next replay leaves as they are
+    return _update(optimizer, cfgs, steps_per_epoch, applied,
+                   _map_aux(torch.Tensor.clone, held.aux), held.named)
 
 
 def _reduce_grads(grads, mesh) -> None:

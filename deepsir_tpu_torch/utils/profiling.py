@@ -17,7 +17,17 @@ A device event belongs to a span when the host call that launched it ran
 inside the span; the backward's kernels, launched from autograd's own
 thread while `loss.backward()` runs, fall in `deepsir.train.backward`. A
 span synchronises nothing, reads no device value and changes nothing that is
-computed. The spans (`SPANS`), from the entry point down:
+computed.
+
+While a CUDA-graph capture of the training step runs (`step_graph.Capture`,
+installed with `cut_at_spans`), every span entry and exit on the capturing
+thread also ends the graph being captured and begins the next, so that each
+graph holds the work of one stretch between two span boundaries. A replay
+(`step_graph.replay`) launches each graph inside the spans it was captured
+in, and when a profiler runs reopens their ranges around its launch: a
+graph's kernels carry the correlation id of their `cudaGraphLaunch`, so they
+fall in the same spans as the eager step's. The spans (`SPANS`), from the
+entry point down:
 
 - `deepsir.h2d`: `training.device_batch`'s copies of the host arrays to
   the device (two ranges a batch: the clouds, masks and indices before the
@@ -54,17 +64,31 @@ computed. The spans (`SPANS`), from the entry point down:
 - `deepsir.train.backward`: `loss.backward()`, and the data-parallel
   reductions of the gradients and the loss terms when there are any.
 - `deepsir.train.guard`: the skip guard's finiteness checks and its one
-  host read.
+  host read (under graphs, the read follows the guard graph's replay,
+  inside the span).
 - `deepsir.train.optimizer`: Adam's update (absent from a skipped step).
 
 Outside every span in a forward: `se3.identity` and the stacking of the
 iterations' outputs.
+
+Under graphs `deepsir.h2d` holds the copies into the step's static input
+buffers, one range a step, and every other span of the step holds graph
+launches; the h2d copies, the host read and Adam's update stay eager.
+
+Counters (Python attributes, read and reset by `chip_smoke.py`):
+`.launches` on the K1-K5 wrappers and `.launches_lp` on K2 and K3 (one per
+call; a graph replay adds the counts its capture recorded), and on
+`training.train_step`: `graph_captures` (steps captured), `graph_replays`
+(steps run by replaying graphs, the capturing step included) and
+`eager_steps` (a Counter of the steps run eagerly, by reason:
+`step_graph.REASONS`).
 """
 from __future__ import annotations
 
 import contextlib
 import logging
 import os
+import threading
 from typing import Iterator, Optional
 
 import torch
@@ -86,11 +110,56 @@ _profiling = torch._C._autograd._profiler_enabled
 _RANGE = torch._C._profiler._RecordFunctionFast
 
 
+_capture = None          # the graph capture that spans cut (cut_at_spans), if any
+
+
+def profiler_running() -> bool:
+    """Whether a torch.profiler session records host operations now."""
+    return _profiling()
+
+
 def span(name: str):
     """A profiler range called `name` while a profiler runs, else a shared
     no-op context (module docstring). Asked at every entry: a profiler may
-    start or stop between two calls."""
+    start or stop between two calls. During a capture the span on the
+    capturing thread is also a graph boundary."""
+    if _capture is not None and _capture.thread == threading.get_ident():
+        return _Boundary(_capture, name)
     return _RANGE(name) if _profiling() else _OFF
+
+
+class _Boundary:
+    """A span under capture: its entry and exit each end the graph being
+    captured and begin the next (`capture.boundary`), and it opens its
+    range as `span` does."""
+    __slots__ = ("capture", "name", "range")
+
+    def __init__(self, capture, name: str):
+        self.capture, self.name = capture, name
+        self.range = _RANGE(name) if _profiling() else _OFF
+
+    def __enter__(self):
+        self.capture.boundary(self.name, True)
+        self.range.__enter__()
+
+    def __exit__(self, *exc):
+        self.range.__exit__(*exc)
+        self.capture.boundary(self.name, False)
+
+
+@contextlib.contextmanager
+def cut_at_spans(capture) -> Iterator[None]:
+    """Make every span on this thread a boundary of `capture`, an object
+    with a `boundary(name, entering)` method and a `thread` ident, until the
+    block ends."""
+    global _capture
+    if _capture is not None:
+        raise RuntimeError("a graph capture is already cutting at the spans")
+    _capture = capture
+    try:
+        yield
+    finally:
+        _capture = None
 
 
 def enable_debug_mode() -> None:
